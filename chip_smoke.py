@@ -7,33 +7,43 @@ Phases, in order; the first failure ends the run with a nonzero exit:
 
 1. device: the card's name, count and ``nvidia-smi`` name / power limit;
    TF32 off for matmuls and cuDNN, so fp32 means fp32;
-2. build: both CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
-   (sm_90a), in parallel, and ``ptxas``'s register / spill report;
+2. build: the four CUDA kernels from ``src/repro_torch/csrc`` with
+   ``nvcc`` (sm_90a), in parallel, and ``ptxas``'s register / spill
+   report of every kernel instantiation;
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs at the serving shapes, bf16 and fp32, at the tolerances of the
-   JAX package's ``tests/test_kernels.py``; then times on the card (CUDA
-   events, inputs rotated past the 50 MB L2) of the kernel, the plain
-   version and one PyTorch call as a yardstick (SDPA, never used by the
-   port), beside the least time the card could take (bound);
-4. model parity: yi-9b at full width, 2 layers, fp32, one seed; the card
-   (CUDA kernels) against the same weights on the CPU (plain versions),
-   prefill logits and three decode steps;
-5. serve: ``repro_torch.serving.executor`` on yi-9b at full width (48
-   layers, bf16): 8 requests, batch 4, prompts of 512 and 1000 tokens, 32
-   output tokens each; every request answered with in-vocab tokens, all
-   logits finite, and the kernel launch counts exactly 48 per prefill
-   batch and 48 per decode step.
+   inputs at the serving shapes, at the tolerances of the JAX package's
+   ``tests/test_kernels.py`` (bf16 attention: relative to each output
+   row's RMS, see ``TOL``): flash and decode attention at yi-9b's and
+   recurrentgemma-2b's head shapes (bf16 and fp32), the SSD scan (bf16 and
+   fp32 inputs, S 1000 and 512, with and without an initial state) and the
+   RG-LRU scan; then times on the card (CUDA events, inputs rotated past
+   the 50 MB L2) of each kernel, its plain version and, for attention, one
+   PyTorch call as a yardstick (SDPA, never used by the port), beside the
+   least time the card could take (bound);
+4. model parity, fp32, one seed, the card (CUDA kernels) against the same
+   weights on the CPU (plain versions), prefill logits and three decode
+   steps, at full width: yi-9b (2 layers), mamba2-780m (2 layers) and
+   recurrentgemma-2b (3 layers, one (rglru, rglru, attn) unit; also one
+   2100-token prompt, so that the 2048-slot local ring wraps);
+5. serve: ``repro_torch.serving.executor`` on yi-9b, mamba2-780m and
+   recurrentgemma-2b at full width (all layers, bf16): 8 requests, batch
+   4, prompts of 512 and 1000 tokens, 32 output tokens each; every request
+   answered with in-vocab tokens, all logits finite, and each kernel's
+   launch count (set to 0 before each model's serve, read after it)
+   exactly one per layer of its kind per prefill batch (flash, SSD scan,
+   RG-LRU scan) or per decode step (decode attention).
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-rest of the repository beside it, the script exits nonzero and prints no
-result.
+The line before the last is the kernels' JSON record (one entry per kernel
+and served model); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -43,11 +53,24 @@ import numpy as np
 import torch
 
 SRC = Path(__file__).resolve().parent / "src"
+# attention: fp32 absolute, as the JAX package's tests/test_kernels.py;
+# bf16 rtol = atol = 3e-2 on each output row divided by that row's RMS over
+# Dh (an absolute 3e-2 is the size of a typical output at long contexts)
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (3e-2, 3e-2)}
+SSD_TOL = 1e-4     # rtol = atol on outputs divided by max |reference|
+RGLRU_TOL = 1e-5   # rtol = atol
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_BYTES = 50 * 2**20
 PARITY_REL = 1e-3  # model parity: max |card - cpu| <= 1e-3 * max |cpu|
+SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b")
+KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
+REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:82",
+    "decode_attention": "src/repro/kernels/decode_attention.py:67",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:38",
+}
 
 
 def log(*args):
@@ -58,13 +81,37 @@ def log(*args):
 
 
 def check_close(name, got, want, dtype) -> float:
-    """Raise unless |got - want| <= atol + rtol |want|; return max abs err."""
+    """Attention outputs (..., Dh): raise unless |got - want| <= atol +
+    rtol |want|, on outputs divided by their row's RMS in bf16 (by 1 in
+    fp32).  Returns the max abs error (unscaled)."""
     rtol, atol = TOL[dtype]
+    scale = (want.float().pow(2).mean(-1, keepdim=True).sqrt() + 1e-9
+             if dtype == torch.bfloat16 else 1.0)
+    return _check(name, got, want, rtol, atol, scale)
+
+
+def check_scaled(name, got, want, tol) -> float:
+    """The JAX ``test_ssd_scan`` check: both sides divided by max |want|,
+    then rtol = atol = ``tol``.  Returns the max abs error (unscaled)."""
+    scale = float(want.float().abs().max()) + 1e-9
+    return _check(name, got, want, tol, tol, scale)
+
+
+def _check(name, got, want, rtol, atol, scale) -> float:
+    """|got - want| / scale <= atol + rtol |want| / scale elementwise;
+    ``scale`` is a number or a tensor that broadcasts against ``want``."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
+    bad = err > atol * scale + rtol * want.abs()
     max_err = float(err.max())
-    log(f"  {name}: max_abs_err {max_err:.3e} (rtol {rtol}, atol {atol})")
+    if isinstance(scale, torch.Tensor):
+        how = (f", row RMS {float(scale.min()):.3g}.."
+               f"{float(scale.max()):.3g}, max err / RMS "
+               f"{float((err / scale).max()):.3e}")
+    else:
+        how = "" if scale == 1.0 else f", scale {scale:.3g}"
+    log(f"  {name}: max_abs_err {max_err:.3e} (rtol {rtol}, atol {atol}"
+        f"{how})")
     if bool(bad.any()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {max_err:.3e})")
@@ -106,6 +153,14 @@ def live_pairs(s: int, causal: bool, window) -> int:
     return int((hi - lo).sum())
 
 
+def record(name, path, shape, err, ms, plain_ms, bound, library_ms) -> dict:
+    return dict(name=name, path=path, route="cuda",
+                source=f"src/repro_torch/csrc/{name}.cu",
+                replaces=REPLACES[name], shape=shape, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms)
+
+
 # -------------------------------------------------------------- phases ----
 
 
@@ -130,42 +185,45 @@ def phase_build():
     _build.build()
     log(f"[2] build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name in _build.SOURCES:
+        entry = "?"
         for line in _build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                # the mangled name, cut before its parameter list
+                entry = re.sub(r"EEvP.*$", "E", m.group(1))
+                entry = entry.replace("_ZN12_GLOBAL__N_1", "")
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
 
-def phase_kernels() -> dict:
-    """Kernels vs plain versions, then times.  Returns name -> record."""
-    import torch.nn.functional as F
+def _randn(gen, *shape, dtype):
+    return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
 
+
+def kernels_attention(gen, errs):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
-    from repro_torch.models.layers import _repeat_kv
-
-    log("[3] kernels vs plain versions")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(*shape, dtype):
-        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
 
     def flash_inputs(b, h, hkv, s, dh, dtype):
         # the model's layout: (B, S, H, Dh) storage seen as (B, H, S, Dh)
-        return tuple(randn(b, s, n, dh, dtype=dtype).transpose(1, 2)
+        return tuple(_randn(gen, b, s, n, dh, dtype=dtype).transpose(1, 2)
                      for n in (h, hkv, hkv))
 
     def decode_inputs(b, h, hkv, s, dh, lengths, dtype):
-        return (randn(b, h, dh, dtype=dtype), randn(b, s, hkv, dh, dtype=dtype),
-                randn(b, s, hkv, dh, dtype=dtype),
+        return (_randn(gen, b, h, dh, dtype=dtype),
+                _randn(gen, b, s, hkv, dh, dtype=dtype),
+                _randn(gen, b, s, hkv, dh, dtype=dtype),
                 torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).removeprefix("torch.")
         for b, h, hkv, s, dh, window in [(4, 32, 4, 512, 128, None),
                                          (4, 32, 4, 1000, 128, None),
                                          (4, 32, 4, 512, 128, 128),
-                                         (4, 16, 4, 1000, 64, None)]:
+                                         (4, 16, 4, 1000, 64, None),
+                                         (4, 10, 1, 1000, 256, 2048),
+                                         (1, 10, 1, 2100, 256, 2048),
+                                         (2, 10, 1, 1000, 256, 128)]:
             q, k, v = flash_inputs(b, h, hkv, s, dh, dtype)
             got = fl.flash_attention_cuda(q, k, v, causal=True, window=window)
             want = fl.flash_attention_torch(q, k, v, causal=True,
@@ -177,7 +235,9 @@ def phase_kernels() -> dict:
         for b, h, hkv, s, dh, window, lens in [
                 (4, 32, 4, 1032, 128, None, [1, 516, 1032, 1001]),
                 (4, 32, 4, 1032, 128, 256, [1032, 700, 255, 1]),
-                (2, 8, 2, 1032, 64, None, [1032, 77])]:
+                (2, 8, 2, 1032, 64, None, [1032, 77]),
+                (4, 10, 1, 2048, 256, 2048, [2048] * 4),
+                (4, 10, 1, 1032, 256, 2048, [1032, 544, 1, 1000])]:
             q, kc, vc, lengths = decode_inputs(b, h, hkv, s, dh, lens, dtype)
             got = dec.decode_attention_cuda(q, kc, vc, lengths, window=window)
             want = dec.decode_attention_torch(q, kc, vc, lengths,
@@ -187,141 +247,295 @@ def phase_kernels() -> dict:
                                            check_close(
                 f"decode {tag} B{b} H{h}/{hkv} S{s} Dh{dh} lengths={lens} "
                 f"window={window}", got, want, dtype))
+    return flash_inputs, decode_inputs
 
-    log("  times at the serving shapes (bf16), card clock:")
+
+def ssd_inputs(gen, b, s, h, p, n, dtype, with_h0):
+    """Inputs shaped as mamba2's prefill hands them to the kernel."""
+    xh = _randn(gen, b, s, h, p, dtype=dtype)
+    dt = torch.nn.functional.softplus(_randn(gen, b, s, h,
+                                             dtype=torch.float32))
+    a = -torch.exp(_randn(gen, h, dtype=torch.float32))
+    bc = _randn(gen, b, s, 2 * n, dtype=dtype) * 0.3
+    h0 = (_randn(gen, b, h, n, p, dtype=torch.float32) if with_h0
+          else None)
+    return xh, dt, a, bc[..., :n], bc[..., n:], h0
+
+
+def rglru_inputs(gen, b, s, w, dtype, with_h0):
+    a = (torch.sigmoid(_randn(gen, b, s, w, dtype=torch.float32)) * 0.2
+         + 0.8).to(dtype)
+    bb = (_randn(gen, b, s, w, dtype=torch.float32) * 0.1).to(dtype)
+    h0 = _randn(gen, b, w, dtype=torch.float32) if with_h0 else None
+    return a, bb, h0
+
+
+def kernels_scans(gen, errs):
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ssd
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        for s, with_h0 in [(1000, True), (1000, False), (512, False),
+                           (512, True)]:
+            args = ssd_inputs(gen, 4, s, 48, 64, 128, dtype, with_h0)
+            y, hf = ssd.ssd_scan_cuda(*args)
+            y_ref, hf_ref = ssd.ssd_scan_torch(*args)
+            torch.cuda.synchronize()
+            name = f"ssd_scan {tag} B4 S{s} H48 P64 N128 h0={with_h0}"
+            errs["ssd_scan"] = max(
+                errs["ssd_scan"], check_scaled(name + " y", y, y_ref,
+                                               SSD_TOL),
+                check_scaled(name + " h_final", hf, hf_ref, SSD_TOL))
+        for s, with_h0 in [(1000, True), (1000, False)]:
+            args = rglru_inputs(gen, 4, s, 2560, dtype, with_h0)
+            h, hl = rg.rglru_scan_cuda(*args)
+            h_ref, hl_ref = rg.rglru_scan_torch(*args)
+            torch.cuda.synchronize()
+            name = f"rglru_scan {tag} B4 S{s} W2560 h0={with_h0}"
+            errs["rglru_scan"] = max(
+                errs["rglru_scan"],
+                _check(name + " h", h, h_ref, RGLRU_TOL, RGLRU_TOL, 1.0),
+                _check(name + " h_last", hl, hl_ref, RGLRU_TOL, RGLRU_TOL,
+                       1.0))
+
+
+def phase_kernels() -> dict:
+    """Kernels vs plain versions, then times.  Returns (name, path) ->
+    record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.layers import _repeat_kv
+
+    log("[3] kernels vs plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = dict.fromkeys(KERNELS, 0.0)
+    flash_inputs, decode_inputs = kernels_attention(gen, errs)
+    kernels_scans(gen, errs)
+
+    log("  times at the serving shapes (bf16 weights), card clock:")
     dtype, item = torch.bfloat16, 2
-    b, h, hkv, dh = 4, 32, 4, 128
     records = {}
 
-    s = 1000  # the longer prompt of the serve phase
-    nbytes = item * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
-    sets = copies(lambda: flash_inputs(b, h, hkv, s, dh, dtype), nbytes)
-    lib_sets = [(q, _repeat_kv(k.transpose(1, 2), h).transpose(1, 2),
-                 _repeat_kv(v.transpose(1, 2), h).transpose(1, 2))
-                for q, k, v in sets]
-    flash_ms = time_ms(lambda q, k, v: fl.flash_attention_cuda(q, k, v),
-                       sets, 30)
-    plain_ms = time_ms(lambda q, k, v: fl.flash_attention_torch(q, k, v),
-                       sets[:2], 5)
-    sdpa_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), lib_sets, 30)
-    bms, by = bound_ms(nbytes, 4 * dh * live_pairs(s, True, None) * b * h,
-                       dtype)
-    records["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:82",
-        shape=f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} causal",
-        max_abs_err=errs["flash_attention"], ms=flash_ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=sdpa_ms)
-    del sets, lib_sets
+    # prefill attention: the serve's 1000-token batches of 4
+    for path, h, hkv, dh, window in (("yi-9b", 32, 4, 128, None),
+                                     ("recurrentgemma-2b", 10, 1, 256,
+                                      2048)):
+        b, s = 4, 1000
+        nbytes = item * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
+        sets = copies(lambda: flash_inputs(b, h, hkv, s, dh, dtype), nbytes)
+        lib_sets = [(q, _repeat_kv(k.transpose(1, 2), h).transpose(1, 2),
+                     _repeat_kv(v.transpose(1, 2), h).transpose(1, 2))
+                    for q, k, v in sets]
+        ms = time_ms(lambda q, k, v: fl.flash_attention_cuda(
+            q, k, v, window=window), sets, 30)
+        plain_ms = time_ms(lambda q, k, v: fl.flash_attention_torch(
+            q, k, v, window=window), sets[:2], 5)
+        # within the window (S < 2048) causal and windowed are one mask
+        sdpa_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), lib_sets, 30)
+        bound = bound_ms(nbytes, 4 * dh * live_pairs(s, True, window) * b * h,
+                         dtype)
+        records["flash_attention", path] = record(
+            "flash_attention", path,
+            f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} causal window={window}",
+            errs["flash_attention"], ms, plain_ms, bound, sdpa_ms)
+        del sets, lib_sets
 
-    s = 1032  # cache of the serve phase's 1000-token batches, all valid
-    lens = [s] * b
-    nbytes = item * (2 * sum(lens) * hkv * dh + 2 * b * h * dh)
-    sets = copies(lambda: decode_inputs(b, h, hkv, s, dh, lens, dtype),
+    # decode attention: the cache of the serve's 1000-token batches
+    for path, h, hkv, dh, window in (("yi-9b", 32, 4, 128, None),
+                                     ("recurrentgemma-2b", 10, 1, 256,
+                                      2048)):
+        b, s = 4, 1032
+        lens = [s] * b
+        nbytes = item * (2 * sum(lens) * hkv * dh + 2 * b * h * dh)
+        sets = copies(lambda: decode_inputs(b, h, hkv, s, dh, lens, dtype),
+                      nbytes)
+        lib_sets = [(q[:, :, None], _repeat_kv(kc, h).transpose(1, 2),
+                     _repeat_kv(vc, h).transpose(1, 2))
+                    for q, kc, vc, _ in sets]
+        ms = time_ms(lambda *a: dec.decode_attention_cuda(
+            *a, window=window), sets, 200)
+        plain_ms = time_ms(lambda *a: dec.decode_attention_torch(
+            *a, window=window), sets, 50)
+        sdpa_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v), lib_sets, 200)
+        bound = bound_ms(nbytes, 4 * dh * h * sum(lens), dtype)
+        records["decode_attention", path] = record(
+            "decode_attention", path,
+            f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} lengths full "
+            f"window={window}", errs["decode_attention"], ms, plain_ms,
+            bound, sdpa_ms)
+        del sets, lib_sets
+
+    # SSD scan: mamba2's prefill, bf16 x / B / C, fp32 dt and state
+    b, s, h, p, n = 4, 1000, 48, 64, 128
+    nbytes = (item * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
+              + 4 * (b * s * h * p + 2 * b * h * n * p))
+    sets = copies(lambda: ssd_inputs(gen, b, s, h, p, n, dtype, True),
                   nbytes)
-    lib_sets = [(q[:, :, None], _repeat_kv(kc, h).transpose(1, 2),
-                 _repeat_kv(vc, h).transpose(1, 2))
-                for q, kc, vc, _ in sets]
-    dec_ms = time_ms(lambda *a: dec.decode_attention_cuda(*a), sets, 200)
-    plain_ms = time_ms(lambda *a: dec.decode_attention_torch(*a), sets, 50)
-    sdpa_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
-                      lib_sets, 200)
-    bms, by = bound_ms(nbytes, 4 * dh * h * sum(lens), dtype)
-    records["decode_attention"] = dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:67",
-        shape=f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} lengths full",
-        max_abs_err=errs["decode_attention"], ms=dec_ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=sdpa_ms)
-    del sets, lib_sets
+    ms = time_ms(ssd.ssd_scan_cuda, sets, 20)
+    plain_ms = time_ms(ssd.ssd_scan_torch, sets[:2], 3)
+    # the recurrence's operations: decay and update, then C^T h, per
+    # element of every (position, head) state, in fp32
+    bound = bound_ms(nbytes, 4 * b * s * h * n * p, torch.float32)
+    records["ssd_scan", "mamba2-780m"] = record(
+        "ssd_scan", "mamba2-780m",
+        f"bf16 x/B/C, fp32 dt/h0 B{b} S{s} H{h} P{p} N{n}", errs["ssd_scan"],
+        ms, plain_ms, bound, None)
+    del sets
+
+    # RG-LRU scan: recurrentgemma's prefill, fp32 a and b
+    b, s, w = 4, 1000, 2560
+    nbytes = 4 * (3 * b * s * w + 2 * b * w)
+    sets = copies(lambda: rglru_inputs(gen, b, s, w, torch.float32, True),
+                  nbytes)
+    ms = time_ms(rg.rglru_scan_cuda, sets, 50)
+    plain_ms = time_ms(rg.rglru_scan_torch, sets[:2], 3)
+    bound = bound_ms(nbytes, 2 * b * s * w, torch.float32)
+    records["rglru_scan", "recurrentgemma-2b"] = record(
+        "rglru_scan", "recurrentgemma-2b", f"fp32 B{b} S{s} W{w}",
+        errs["rglru_scan"], ms, plain_ms, bound, None)
+    del sets
+
     for r in records.values():
-        log(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"  {r['name']} ({r['path']}) [{r['shape']}]: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib},"
+            f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return records
 
 
-def phase_parity():
-    from repro_torch.configs import get_config
+def counters() -> dict:
+    """name -> the module whose ``launches`` counts that kernel."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"flash_attention": fl, "decode_attention": dec, "ssd_scan": ssd,
+            "rglru_scan": rg}
+
+
+def expected_launches(cfg, prefill_batches: int, decode_steps: int) -> dict:
+    """One launch per layer of the kernel's kind per prefill batch (flash,
+    the scans) or per decode step (decode attention)."""
+    kinds = cfg.layer_types()
+    n_attn = sum(k in ("attn_mlp", "attn") for k in kinds)
+    return {"flash_attention": n_attn * prefill_batches,
+            "decode_attention": n_attn * decode_steps,
+            "ssd_scan": kinds.count("ssm") * prefill_batches,
+            "rglru_scan": kinds.count("rglru") * prefill_batches}
+
+
+def parity(arch: str, n_layers: int, runs):
+    """Card vs CPU, fp32, full width, ``n_layers`` layers.  ``runs``:
+    (batch, prompt length) pairs; each prefills and decodes 3 tokens."""
+    from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    log("[4] model parity: yi-9b full width, 2 layers, fp32, card vs CPU")
-    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     card = Model(cfg, dtype=torch.float32, device="cuda")
     card.init(torch.Generator(device="cuda").manual_seed(0))
     cpu = Model(cfg, dtype=torch.float32, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 80)))
-    launches = (fl.launches, dec.launches)
-    with torch.inference_mode():
-        c_card, c_cpu = card.init_cache(2, 80), cpu.init_cache(2, 80)
-        outs = [(card.prefill(toks[:, :77].cuda(), c_card),
-                 cpu.prefill(toks[:, :77], c_cpu))]
-        for i in range(77, 80):
-            (_, c_card), (_, c_cpu) = outs[-1]
-            outs.append((card.decode_step(c_card, toks[:, i:i + 1].cuda()),
-                         cpu.decode_step(c_cpu, toks[:, i:i + 1])))
-    # fp32 on both sides (TF32 off); sums over d_model = 4096 and d_ff =
-    # 11008 run in another order on the card, so the bound is relative to
-    # the logits' scale.
-    for step, ((got, _), (want, _)) in enumerate(outs):
-        err = float((got.cpu() - want).abs().max())
-        scale = float(want.abs().max())
-        log(f"  {'prefill' if step == 0 else f'decode {step}'}: max abs err "
-            f"{err:.3e} = {err / scale:.2e} of max |logit| {scale:.3f}")
-        if not err <= PARITY_REL * scale:
-            raise AssertionError("card and CPU logits disagree")
-    rose = (fl.launches - launches[0], dec.launches - launches[1])
-    log(f"  kernel launches: flash +{rose[0]}, decode +{rose[1]}")
-    if rose != (2, 6):
-        raise AssertionError(f"parity run did not go through the kernels: "
-                             f"{rose}")
-    del card, cpu, outs, c_card, c_cpu
+    mods = counters()
+    for b, s in runs:
+        log(f"  {arch}, {n_layers} layers, B{b} prompt {s}:")
+        toks = torch.from_numpy(np.random.default_rng(s).integers(
+            0, cfg.vocab_size, (b, s + 3)))
+        before = {k: m.launches for k, m in mods.items()}
+        with torch.inference_mode():
+            c_card, c_cpu = card.init_cache(b, s + 3), cpu.init_cache(b, s + 3)
+            outs = [(card.prefill(toks[:, :s].cuda(), c_card),
+                     cpu.prefill(toks[:, :s], c_cpu))]
+            for i in range(s, s + 3):
+                (_, c_card), (_, c_cpu) = outs[-1]
+                outs.append((card.decode_step(c_card,
+                                              toks[:, i:i + 1].cuda()),
+                             cpu.decode_step(c_cpu, toks[:, i:i + 1])))
+        # fp32 on both sides (TF32 off); the sums over d_model and d_ff run
+        # in another order on the card, so the bound is relative to the
+        # logits' scale.
+        for step, ((got, _), (want, _)) in enumerate(outs):
+            err = float((got.cpu() - want).abs().max())
+            scale = float(want.abs().max())
+            log(f"    {'prefill' if step == 0 else f'decode {step}'}: max abs"
+                f" err {err:.3e} = {err / scale:.2e} of max |logit| "
+                f"{scale:.3f}")
+            if not err <= PARITY_REL * scale:
+                raise AssertionError(f"{arch}: card and CPU logits disagree")
+        rose = {k: m.launches - before[k] for k, m in mods.items()}
+        want = expected_launches(cfg, 1, 3)
+        log(f"    kernel launches {rose}")
+        if rose != want:
+            raise AssertionError(f"{arch}: parity run did not go through "
+                                 f"the kernels: {rose}, expected {want}")
+        del outs, c_card, c_cpu
+    del card, cpu
     torch.cuda.empty_cache()
 
 
-def phase_serve(records: dict):
+def phase_parity():
+    log("[4] model parity: full width, fp32, card vs CPU")
+    parity("yi-9b", 2, [(2, 77)])
+    parity("mamba2-780m", 2, [(2, 77)])
+    parity("recurrentgemma-2b", 3, [(2, 77), (1, 2100)])
+
+
+def serve_one(arch: str, records: dict):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fl
     from repro_torch.serving import executor
 
-    log("[5] serve: yi-9b full width (48 layers, bf16), 8 requests, batch 4,"
-        " prompts 512/1000, 32 output tokens")
-    cfg = get_config("yi-9b")
+    cfg = get_config(arch)
+    log(f"  {arch} ({cfg.n_layers} layers):")
+    mods = counters()
     torch.cuda.reset_peak_memory_stats()
-    fl.launches = dec.launches = 0
-    rep = executor.serve("yi-9b", requests=8, batch=4,
-                         prompt_lens=(512, 1000), output_len=32, seed=0,
-                         device="cuda")
-    counts = {"flash_attention": fl.launches,
-              "decode_attention": dec.launches}
+    for m in mods.values():
+        m.launches = 0
+    rep = executor.serve(arch, requests=8, batch=4, prompt_lens=(512, 1000),
+                         output_len=32, seed=0, device="cuda")
+    counts = {k: m.launches for k, m in mods.items()}
     if len(rep.results) != 8 or not all(
             len(r.tokens) == 32 and all(0 <= t < cfg.vocab_size
                                         for t in r.tokens)
             for r in rep.results):
-        raise AssertionError("a request was not answered with 32 tokens")
+        raise AssertionError(f"{arch}: a request was not answered with 32 "
+                             "tokens")
     if not rep.all_finite:
-        raise AssertionError("non-finite logits")
-    want = {"flash_attention": cfg.n_layers * rep.prefill_batches,
-            "decode_attention": cfg.n_layers * rep.decode_steps}
-    log(f"  launches {counts}, expected {want}")
+        raise AssertionError(f"{arch}: non-finite logits")
+    want = expected_launches(cfg, rep.prefill_batches, rep.decode_steps)
+    log(f"    launches {counts}, expected {want}")
     if counts != want:
-        raise AssertionError("kernel launch counts do not match the path")
+        raise AssertionError(f"{arch}: kernel launch counts do not match "
+                             "the path")
     for name, n in counts.items():
-        records[name]["launches"] = n
+        if (name, arch) in records:
+            records[name, arch]["launches"] = n
+        elif n:
+            raise AssertionError(f"{arch}: {name} launched but not timed")
     s = rep.summary()
-    log(f"  TTFT p50 {s['ttft_ms_p50']:.1f} ms (max {s['ttft_ms_max']:.1f}),"
-        f" decode {s['decode_ms_per_step']:.2f} ms/step, "
-        f"{s['tokens_per_s']:.1f} tokens/s, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log(f"  request 0 tokens: {rep.results[0].tokens[:8]} ...")
+    log(f"    TTFT p50 {s['ttft_ms_p50']:.1f} ms (max "
+        f"{s['ttft_ms_max']:.1f}), decode {s['decode_ms_per_step']:.2f} "
+        f"ms/step, {s['tokens_per_s']:.1f} tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"    request 0 tokens: {rep.results[0].tokens[:8]} ...")
+    del rep
+    torch.cuda.empty_cache()
+
+
+def phase_serve(records: dict):
+    log("[5] serve at full width (bf16), 8 requests, batch 4, prompts "
+        "512/1000, 32 output tokens")
+    for arch in SERVED:
+        serve_one(arch, records)
+    missing = [k for k, r in records.items() if "launches" not in r]
+    if missing:
+        raise AssertionError(f"no served path launched {missing}")
 
 
 def main() -> int:
@@ -337,8 +551,9 @@ def main() -> int:
     phase_parity()
     phase_serve(records)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "path", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": device}))

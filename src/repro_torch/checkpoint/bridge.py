@@ -8,10 +8,14 @@ Two sources, both read without JAX (the machine with the card has none):
     the JAX package's ``checkpoint/store.py`` writes, where bf16 leaves are
     stored as uint16 views.
 
-JAX stacks the dense layers along a leading ``n_layers`` axis (its init is
-``vmap``-ed); the bridge slices that axis per layer.  Every other layout
-is the same in both packages, so leaves copy without transposes, and bf16
-bits arrive unchanged (through an int16 view; no ``ml_dtypes`` needed).
+JAX stacks the layers of a homogeneous stack (dense, SSM) along a leading
+``n_layers`` axis (its init is ``vmap``-ed); the bridge slices that axis
+per layer.  The hybrid's layers are a list of per-layer dicts, which a
+checkpoint stores under ``layers/<i>/...``; the bridge takes both forms.
+Every other layout is the same in both packages, so leaves copy without
+transposes, and bf16 bits arrive unchanged (through an int16 view; no
+``ml_dtypes`` needed).  Norms and the SSM / RG-LRU decay parameters stay
+fp32, as in JAX; everything else has the model dtype.
 """
 from __future__ import annotations
 
@@ -38,25 +42,27 @@ def _to_torch(leaf) -> torch.Tensor:
 def _leaf(tree: dict, path: str):
     node = tree
     for part in path.split("/"):
-        node = node[part]
+        node = node[int(part)] if isinstance(node, list) else node[part]
     return node
 
 
-def _paths(tree: dict, prefix: str = ""):
-    for key, node in tree.items():
-        if isinstance(node, dict):
-            yield from _paths(node, prefix + key + "/")
+def _paths(tree, prefix: str = ""):
+    items = (enumerate(tree) if isinstance(tree, list) else tree.items())
+    for key, node in items:
+        if isinstance(node, (dict, list)):
+            yield from _paths(node, f"{prefix}{key}/")
         else:
-            yield prefix + key
+            yield f"{prefix}{key}"
 
 
-def _jax_path(name: str) -> tuple[str, int | None]:
+def _jax_path(name: str, stacked: bool) -> tuple[str, int | None]:
     """Port parameter name -> (JAX tree path, layer index or None).
 
-    ``layers.<i>.<rest>`` is row i of the stacked ``layers/<rest>``.
+    ``layers.<i>.<rest>`` is row i of the stacked ``layers/<rest>``, or
+    the leaf ``layers/<i>/<rest>`` of a per-layer list.
     """
     parts = name.split(".")
-    if parts[0] == "layers":
+    if parts[0] == "layers" and stacked:
         return "/".join(["layers", *parts[2:]]), int(parts[1])
     return "/".join(parts), None
 
@@ -70,7 +76,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
     """
     dtype = _to_torch(_leaf(tree, "embed/tok")).dtype
     model = Model(cfg, dtype=dtype, device=device)
-    wanted = {_jax_path(n)[0] for n, _ in model.named_parameters()}
+    kinds = cfg.layer_types()
+    stacked = all(k == kinds[0] for k in kinds)  # JAX's is_homogeneous
+    wanted = {_jax_path(n, stacked)[0] for n, _ in model.named_parameters()}
     given = set(_paths(tree))
     if wanted != given:
         raise ValueError(f"JAX tree does not match {cfg.name}: missing "
@@ -78,7 +86,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
                          f"{sorted(given - wanted)}")
     with torch.no_grad():
         for name, param in model.named_parameters():
-            path, layer = _jax_path(name)
+            path, layer = _jax_path(name, stacked)
             src = _leaf(tree, path)
             src = _to_torch(src if layer is None else src[layer])
             if src.shape != param.shape or src.dtype != param.dtype:

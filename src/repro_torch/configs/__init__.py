@@ -3,8 +3,8 @@
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` returns a reduced variant of the same family
 (<=2 layers, d_model<=512, <=4 experts) for CPU smoke tests.  Both behave
-as the JAX package's ``configs`` do.  The dense configs are ported; the
-others name the slice of the port that brings them.
+as the JAX package's ``configs`` do.  The dense, SSM and hybrid configs
+are ported; the others name the slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -28,8 +28,6 @@ ARCH_IDS = (
 NOT_YET_PORTED = {
     "deepseek-moe-16b": "MoE",
     "arctic-480b": "MoE",
-    "mamba2-780m": "SSM",
-    "recurrentgemma-2b": "hybrid",
     "internvl2-76b": "encoder/VLM",
     "hubert-xlarge": "encoder/VLM",
 }

@@ -8,7 +8,9 @@
 //   * decode_partial: grid (n_split, Hkv, B), 4 warps.  A block reads cache
 //     slots [split * chunk, (split + 1) * chunk) of one (batch row, KV head)
 //     once, for all G query heads of that KV head.  Each warp takes every
-//     4th group of U = 4 slots; a lane holds D / 32 elements of each row,
+//     4th group of U slots (U = 4; U = 2 where G * D > 2048, as for
+//     recurrentgemma's G 10 at Dh 256, whose q and accumulator rows already
+//     take 160 registers a lane); a lane holds D / 32 elements of each row,
 //     the dot products are reduced with warp shuffles, and each warp keeps
 //     an fp32 online softmax (m, l, acc) per head.  The warps' states are
 //     merged in shared memory and written as the split's partial;
@@ -30,8 +32,13 @@ namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int U = 4;  // slots in flight per warp
 constexpr float NEG_INF = -1e30f;
+
+// cache slots in flight per warp
+template <int D, int G>
+__host__ __device__ constexpr int slots_in_flight() {
+  return G * D > 2048 ? 2 : 4;
+}
 
 struct CacheStrides {
   int64_t b, s, h;
@@ -62,6 +69,7 @@ __global__ void __launch_bounds__(THREADS)
                    int n_split, int64_t sqb, int64_t sqh, CacheStrides sk,
                    CacheStrides sv, int window, float scale) {
   constexpr int E = D / 32;  // elements of a row per lane
+  constexpr int U = slots_in_flight<D, G>();
   __shared__ float sm[WARPS][G];
   __shared__ float sl[WARPS][G];
   __shared__ float sacc[WARPS][G][D];
@@ -207,6 +215,21 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   return cudaGetLastError();
 }
 
+// G 10 exists only at Dh 256 (recurrentgemma), and Dh 256 only at G 10.
+template <typename T>
+cudaError_t launch_256(int G, const void* q, const void* kc, const void* vc,
+                       const int* lengths, void* o, float* part_m,
+                       float* part_l, float* part_acc, int B, int Hkv, int S,
+                       int n_split, int chunk, int64_t sqb, int64_t sqh,
+                       CacheStrides sk, CacheStrides sv, int64_t sob,
+                       int64_t soh, int window, float scale,
+                       cudaStream_t stream) {
+  if (G != 10) return cudaErrorInvalidValue;
+  return launch<T, 256, 10>(q, kc, vc, lengths, o, part_m, part_l, part_acc,
+                            B, Hkv, S, n_split, chunk, sqb, sqh, sk, sv, sob,
+                            soh, window, scale, stream);
+}
+
 template <typename T, int D>
 cudaError_t launch_d(int G, const void* q, const void* kc, const void* vc,
                      const int* lengths, void* o, float* part_m,
@@ -271,6 +294,14 @@ int decode_attention_launch(const void* q, const void* kc, const void* vc,
     return launch_d<__nv_bfloat16, 128>(G, q, kc, vc, len, o, pm, pl, pa, B,
                                         Hkv, S, n_split, chunk, sqb, sqh, sk,
                                         sv, sob, soh, window, scale, st);
+  if (dtype == 0 && D == 256)
+    return launch_256<float>(G, q, kc, vc, len, o, pm, pl, pa, B, Hkv, S,
+                             n_split, chunk, sqb, sqh, sk, sv, sob, soh,
+                             window, scale, st);
+  if (dtype == 1 && D == 256)
+    return launch_256<__nv_bfloat16>(G, q, kc, vc, len, o, pm, pl, pa, B, Hkv,
+                                     S, n_split, chunk, sqb, sqh, sk, sv, sob,
+                                     soh, window, scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -5,12 +5,15 @@
 // repro_torch/kernels/flash_attention.py for the contract, the bound on the
 // H100 and the design; in short:
 //
-//   * grid (ceil(S / BQ), H, B); 128 threads; one block owns BQ = 64 queries
+//   * grid (ceil(S / BQ), H, B); 128 threads; one block owns BQ queries
 //     of one (batch, head) and loops over K/V tiles of BK = 64 keys staged in
 //     shared memory (the TPU's sequential kv grid axis);
-//   * thread (ty, tx) owns query rows ty*4 .. ty*4+3 and key columns
+//   * thread (ty, tx) owns R query rows ty*R .. ty*R+R-1 and key columns
 //     tx + 8*j of each score tile, and the output columns tx + 8*c; the
-//     8 threads of a row group reduce the row max and sum by warp shuffles;
+//     8 threads of a row group reduce the row max and sum by warp shuffles.
+//     R = 4 (BQ = 64) for head dims up to 128; at Dh 256 R = 2 (BQ = 32),
+//     which halves the accumulator a thread holds (64 floats) and the Q
+//     and P tiles, so the block fits the registers and shared memory;
 //   * the running max m, denominator l and accumulator acc are fp32
 //     registers; masked logits are -1e30 and the denominator is floored at
 //     1e-30, as on the TPU;
@@ -29,7 +32,6 @@
 
 namespace {
 
-constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
@@ -54,13 +56,19 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// query rows per thread, and the block's query tile BQ = 16 * R
+template <int D>
+__host__ __device__ constexpr int rows_per_thread() {
+  return D <= 128 ? 4 : 2;
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
   // Q and K rows padded to D + 1 floats and P rows to BK + 1 floats, so
   // that the threads of a warp hit distinct banks.
-  return sizeof(float) *
-         (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D +
-          size_t(BQ) * (BK + 1));
+  constexpr size_t BQ = 16 * rows_per_thread<D>();
+  return sizeof(float) * (BQ * (D + 1) + size_t(BK) * (D + 1) +
+                          size_t(BK) * D + BQ * (BK + 1));
 }
 
 template <typename T, int D>
@@ -69,6 +77,8 @@ __global__ void __launch_bounds__(THREADS)
                  const T* __restrict__ v, T* __restrict__ o, int group, int S,
                  Strides sq, Strides sk, Strides sv, Strides so, int causal,
                  int window, float scale) {
+  constexpr int R = rows_per_thread<D>();
+  constexpr int BQ = 16 * R;
   constexpr int DP = D + 1;
   constexpr int BKP = BK + 1;
   constexpr int CPT = D / 8;  // output columns per thread
@@ -97,9 +107,9 @@ __global__ void __launch_bounds__(THREADS)
     Qs[r * DP + d] = qi < S ? to_float(qb[qi * sq.s + d]) : 0.f;
   }
 
-  float m[4], l[4], acc[4][CPT];
+  float m[R], l[R], acc[R][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -125,27 +135,27 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    float s[4][8];
+    float s[R][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[4], kv[8];
+      float qv[R], kv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + d];
+      for (int i = 0; i < R; ++i) qv[i] = Qs[(ty * R + i) * DP + d];
 #pragma unroll
       for (int j = 0; j < 8; ++j) kv[j] = Ks[(tx + 8 * j) * DP + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + ty * R + i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -174,27 +184,27 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Ps[(ty * 4 + i) * BKP + tx + 8 * j] = s[i][j];
+      for (int j = 0; j < 8; ++j) Ps[(ty * R + i) * BKP + tx + 8 * j] = s[i][j];
     }
     __syncthreads();
 
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[CPT];
+      float pv[R], vv[CPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * BKP + kk];
+      for (int i = 0; i < R; ++i) pv[i] = Ps[(ty * R + i) * BKP + kk];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) vv[c] = Vs[kk * D + tx + 8 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
     if (qi < S) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -216,6 +226,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
+  constexpr int BQ = 16 * rows_per_thread<D>();
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -251,6 +262,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                                      causal, window, scale, st);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, Hkv, S, sq, sk, sv,
+                                      so, causal, window, scale, st);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so,
+                              causal, window, scale, st);
+  if (dtype == 1 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, B, H, Hkv, S, sq, sk, sv,
                                       so, causal, window, scale, st);
   return cudaErrorInvalidValue;
 }

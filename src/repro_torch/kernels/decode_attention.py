@@ -15,7 +15,11 @@ split, KV head, batch row) reads its slice of the cache once for all G
 heads, four warps each keeping an fp32 online softmax, four slots' loads
 in flight per warp; a second small kernel combines the splits' partial
 (max, denominator, accumulator).  Splitting the cache length fills the
-132 SMs where B * Hkv blocks (16 for yi-9b at batch 4) could not.  The
+132 SMs where B * Hkv blocks (16 for yi-9b at batch 4) could not.  With
+recurrentgemma's one KV head at batch 4 the rule gives 68 blocks at a
+1032-slot cache and 128 when the 2048-slot ring is full; splits of fewer
+slots would give more blocks but lengthen the combine, whose threads walk
+the splits one by one (the larger cost on the card, see ``PERF.md``).  The
 partials are allocated here with ``torch.empty``; the kernels allocate
 nothing.  ``lengths`` stays on the device: the blocks read it themselves,
 so a decode step never waits on the host.
@@ -32,8 +36,9 @@ from repro_torch.kernels import _build
 launches = 0  # launches of the CUDA kernel pair (plain calls not counted)
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
-GROUPS = (1, 2, 4, 8, 16)
+# head dim -> query heads per KV head the kernel is built for (Dh 256 with
+# group 10 is recurrentgemma's shape)
+GROUPS = {64: (1, 2, 4, 8, 16), 128: (1, 2, 4, 8, 16), 256: (10,)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100
 _MIN_SPLIT = 64           # fewest cache slots worth a block of their own
@@ -86,9 +91,9 @@ def _check(q, k_cache, v_cache, lengths, window):
     if k_cache.shape[0] != b or dk != dh or h % hkv:
         raise ValueError(f"decode_attention_cuda: shapes q {tuple(q.shape)}"
                          f" k {tuple(k_cache.shape)}")
-    if dh not in HEAD_DIMS or h // hkv not in GROUPS:
-        raise ValueError(f"decode_attention_cuda: head dim {dh} / group "
-                         f"{h // hkv} not in {HEAD_DIMS} / {GROUPS}")
+    if h // hkv not in GROUPS.get(dh, ()):
+        raise ValueError(f"decode_attention_cuda: head dim {dh} with group "
+                         f"{h // hkv} not in {GROUPS}")
     if (lengths.device != q.device or lengths.dtype != torch.int32
             or lengths.shape != (b,) or not lengths.is_contiguous()):
         raise ValueError("decode_attention_cuda: lengths must be a "

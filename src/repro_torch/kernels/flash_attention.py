@@ -14,7 +14,9 @@ same order; with S growing the operations (4*Dh per live query-key pair)
 take over.  Design: one thread block per (query tile of 64, head, batch)
 and a loop over K/V tiles of 64 staged in shared memory takes the place of
 the TPU's sequential kv grid axis, so q/k/v are read from device memory
-once per query tile and the (S x S) scores never leave the block.  Tiles
+once per query tile and the (S x S) scores never leave the block.  At
+Dh 256 (recurrentgemma) the query tile is 32, which keeps a thread's
+accumulator at 64 floats and the block's tiles in shared memory.  Tiles
 the mask hides completely are never loaded.  Any S works: the ragged last
 tile is masked in the kernel (the TPU kernel required S to be a multiple
 of its block).  q/k/v/o are read and written through their strides, so the
@@ -34,7 +36,7 @@ from repro_torch.kernels import _build
 launches = 0  # launches of the CUDA kernel (plain-version calls not counted)
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +

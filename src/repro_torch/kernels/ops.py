@@ -1,4 +1,4 @@
-"""The attention entry points, with the JAX ``kernels/ops.py`` signatures.
+"""The kernel entry points, with the JAX ``kernels/ops.py`` signatures.
 
 The JAX package selects a backend with ``impl``; the port selects it from
 the tensor's device.  A CPU tensor runs the plain PyTorch version; a CUDA
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rglru_scan as _rglru
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _route(t, name: str) -> str:
@@ -36,3 +38,23 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                                               window=window)
     return _decode.decode_attention_cuda(q, k_cache, v_cache, lengths,
                                          window=window)
+
+
+def ssd_scan(xh, dt, a, bmat, cmat, h0=None):
+    """xh: (B, S, H, P); dt: (B, S, H); a: (H,); bmat/cmat: (B, S, N);
+    h0: (B, H, N, P) or None.
+
+    Returns (y (B, S, H, P), h_final (B, H, N, P)), both fp32.  Unlike the
+    JAX entry it takes and returns the state, and any S works."""
+    if _route(xh, "ssd_scan") == "cpu":
+        return _ssd.ssd_scan_torch(xh, dt, a, bmat, cmat, h0)
+    return _ssd.ssd_scan_cuda(xh, dt, a, bmat, cmat, h0)
+
+
+def rglru_scan(a, b, h0=None):
+    """a, b: (B, S, W); h0: (B, W) or None.
+
+    Returns (h_seq (B, S, W), h_last (B, W)), both fp32."""
+    if _route(a, "rglru_scan") == "cpu":
+        return _rglru.rglru_scan_torch(a, b, h0)
+    return _rglru.rglru_scan_cuda(a, b, h0)

@@ -171,6 +171,22 @@ def attention_decode(q, k_cache, v_cache, cache_len, *,
                                 window=window)[:, None]
 
 
+# --------------------------------------------------------------- conv ----
+
+
+def causal_conv(x, conv_w, conv_state=None):
+    """Depthwise causal conv along the sequence (the short conv of the SSM
+    and RG-LRU blocks).  x: (B, S, W); conv_w: (K, W); conv_state: the
+    previous K-1 inputs (B, K-1, W), or None for zeros.  S = 1 is the decode
+    step.  Returns (out in x's dtype, the last K-1 inputs)."""
+    k = conv_w.shape[0]
+    pad = (torch.zeros_like(x[:, :k - 1]) if conv_state is None
+           else conv_state)
+    xpad = torch.cat([pad, x], dim=1)
+    out = sum(xpad[:, i:i + x.shape[1]] * conv_w[i] for i in range(k))
+    return out, xpad[:, -(k - 1):]
+
+
 # ---------------------------------------------------------------- mlp ----
 
 

@@ -1,8 +1,8 @@
 """The Model: config -> init / forward / prefill / decode.
 
 PyTorch counterpart of the JAX package's ``models/model.py`` for the dense
-decoders.  The JAX ``Model`` is pure: parameters are a pytree passed to
-every method.  Here the parameters live in the ``nn.Module`` and the
+decoders, the SSM (mamba2) and the hybrid (recurrentgemma).  The JAX
+``Model`` is pure: parameters are a pytree passed to every method.  Here the parameters live in the ``nn.Module`` and the
 methods take token tensors:
 
   * ``forward(tokens)``: (B, S) -> logits (B, S, padded_vocab);
@@ -10,8 +10,8 @@ methods take token tensors:
   * ``decode_step(cache, tokens)``: tokens (B, 1) -> logits (B, 1, V).
 
 ``cache["len"]`` is one Python int shared by the whole batch, so the decode
-loop never waits on the device to find its ring slot.  The KV tensors of a
-cache are updated in place.  Training (``loss_fn``) comes with the
+loop never waits on the device to find its ring slot.  The per-layer
+caches (KV tensors, recurrent states) are updated in place.  Training (``loss_fn``) comes with the
 training slice of the port.
 """
 from __future__ import annotations
@@ -23,6 +23,8 @@ from torch import nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Embed, make_norm
+
+SERVED = ("dense", "ssm", "hybrid")  # arch types the port serves
 
 
 def resolve_device(device) -> torch.device:
@@ -39,10 +41,10 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  device="cuda"):
         super().__init__()
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in SERVED:
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.arch_type}) is not yet ported; this "
-                "slice of the port serves dense decoders")
+                f"{cfg.name} ({cfg.arch_type}) is not yet ported; the port "
+                f"serves {SERVED}")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -85,7 +87,9 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, *,
                    window: int | None = None) -> dict:
-        """Decode cache.  ``window`` caps attention cache size (ring buffer)."""
+        """Decode cache: per layer a KV ring (``window`` caps its size; a
+        hybrid's attention layers cap it at ``local_window``) or the SSM /
+        RG-LRU state, all zero."""
         size = min(max_len, window) if window else max_len
         return {"layers": [
             tfm.init_layer_cache(kind, self.cfg, batch, size,

@@ -1,73 +1,95 @@
-"""Block assembly for the dense ``attn_mlp`` decoder, and the layer stack.
+"""Block assembly: attention, SSM and RG-LRU residual blocks, and the
+layer stack.
 
-PyTorch counterpart of the JAX package's ``models/transformer.py``, for the
-``attn_mlp`` kind only; the other kinds come with later slices of the port
-and raise ``NotImplementedError`` here.  The JAX package scans stacked
-layer parameters with ``lax.scan``; here the stack is a Python loop over an
-``nn.ModuleList`` of blocks.
+PyTorch counterpart of the JAX package's ``models/transformer.py`` for the
+kinds ``attn_mlp`` (dense), ``ssm`` (mamba2) and ``rglru`` / ``attn`` (the
+hybrid's recurrent and local-attention blocks); ``moe`` comes with a later
+slice of the port and raises ``NotImplementedError`` here.  The JAX package
+scans stacked layer parameters with ``lax.scan`` (or loops over the
+hybrid's list); here the stack is a Python loop over an ``nn.ModuleList``
+of blocks.
 
-KV caches are dicts ``{"k", "v"}`` of (B, size, Hkv, Dh) tensors, updated
-in place (the JAX code returns new arrays; in place saves a copy of the
-cache per layer).  Both prefill and decode write position t at ring slot
-``t % size``.  The JAX ``_attention_seq`` writes the trailing window of a
-prompt longer than the cache from slot 0 instead, which the next decode
-step's write at ``len % size`` then clobbers; the port deliberately does
-not copy that.
+Caches are per-layer dicts, updated in place (the JAX code returns new
+arrays; in place saves a copy of the cache per layer): ``{"k", "v"}`` of
+(B, size, Hkv, Dh) tensors for attention, the SSM and RG-LRU state dicts
+for the recurrent kinds.  A hybrid ``attn`` layer's cache holds
+``min(max_len, local_window)`` slots.  Both prefill and decode write
+position t at ring slot ``t % size``.  The JAX ``_attention_seq`` writes
+the trailing window of a prompt longer than the cache from slot 0 instead,
+which the next decode step's write at ``len % size`` then clobbers; the
+port deliberately does not copy that.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, Attention, apply_rope,
                                        attention_decode, attention_full,
                                        make_norm)
 
-# layer kind -> the slice of the port that brings it
-_FUTURE_SLICE = {"moe": "MoE", "ssm": "SSM", "rglru": "hybrid",
-                 "attn": "hybrid"}
+ATTN_KINDS = ("attn_mlp", "attn")
+KINDS = ATTN_KINDS + ("ssm", "rglru")
 
 
-def _require_attn_mlp(kind: str):
-    if kind != "attn_mlp":
+def _require_ported(kind: str):
+    if kind not in KINDS:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not yet ported; it comes with the "
-            f"{_FUTURE_SLICE.get(kind, 'a later')} slice of the port")
+            f"layer kind {kind!r} is not yet ported; "
+            + ("it comes with the MoE slice of the port" if kind == "moe"
+               else f"the port has {KINDS}"))
 
 
 # ---------------------------------------------------------------- init ----
 
 
 class Block(nn.Module):
-    """Pre-norm residual block: attention, then MLP."""
+    """Pre-norm residual block, with the JAX ``init_layer`` parameters of
+    its kind: attention then MLP (``attn_mlp``, ``attn``); the SSM mixer
+    alone (``ssm``); the RG-LRU then MLP (``rglru``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, kind: str, cfg: ModelConfig, *, device, dtype):
         super().__init__()
+        _require_ported(kind)
         norm = make_norm(cfg.norm)
         d = cfg.d_model
         self.ln1 = norm(d, device=device)
-        self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                              device=device, dtype=dtype)
-        self.ln2 = norm(d, device=device)
-        self.mlp = MLP(d, cfg.d_ff, cfg.activation, device=device,
-                       dtype=dtype)
+        if kind in ATTN_KINDS:
+            self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, device=device, dtype=dtype)
+        elif kind == "ssm":
+            self.ssm = ssm_mod.ssm_init(cfg, device=device, dtype=dtype)
+        else:
+            self.rglru = rglru_mod.rglru_init(cfg, device=device,
+                                              dtype=dtype)
+        if kind != "ssm":
+            self.ln2 = norm(d, device=device)
+            self.mlp = MLP(d, cfg.d_ff, cfg.activation, device=device,
+                           dtype=dtype)
 
     def reset_parameters(self, generator):
-        for m in (self.ln1, self.attn, self.ln2, self.mlp):
+        for m in self.children():
             m.reset_parameters(generator)
 
 
 def init_layer(kind: str, cfg: ModelConfig, *, device, dtype) -> Block:
     """Allocate one layer (parameters unfilled: see ``Model.init``)."""
-    _require_attn_mlp(kind)
-    return Block(cfg, device=device, dtype=dtype)
+    return Block(kind, cfg, device=device, dtype=dtype)
 
 
 def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      *, device, dtype) -> dict:
-    _require_attn_mlp(kind)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    _require_ported(kind)
+    if kind == "ssm":
+        return ssm_mod.init_ssm_state(cfg, batch, device=device, dtype=dtype)
+    if kind == "rglru":
+        return rglru_mod.init_rglru_state(cfg, batch, device=device,
+                                          dtype=dtype)
+    size = min(max_len, cfg.local_window) if kind == "attn" else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, device=device, dtype=dtype),
             "v": torch.zeros(shape, device=device, dtype=dtype)}
 
@@ -119,15 +141,30 @@ def _attention_step(attn: Attention, x, cfg: ModelConfig, cache,
 # ---------------------------------------------------------------- blocks --
 
 
+def _window(kind: str, cfg: ModelConfig, window_override):
+    if window_override is not None:
+        return window_override
+    return cfg.local_window if kind == "attn" else cfg.sliding_window
+
+
 def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
                     cache=None, window_override=None):
-    """Full-sequence residual block.  Returns (x, cache)."""
-    _require_attn_mlp(kind)
-    window = (window_override if window_override is not None
-              else cfg.sliding_window)
-    a_out, cache = _attention_seq(block.attn, block.ln1(x), cfg, positions,
-                                  window, cache)
-    x = x + a_out
+    """Full-sequence residual block.  Returns (x, cache); a recurrent
+    kind's state in ``cache`` is replaced by the state after the sequence."""
+    h = block.ln1(x)
+    if kind in ATTN_KINDS:
+        out, cache = _attention_seq(block.attn, h, cfg, positions,
+                                    _window(kind, cfg, window_override),
+                                    cache)
+    else:
+        apply = (ssm_mod.ssm_apply if kind == "ssm"
+                 else rglru_mod.rglru_apply)
+        out, state = apply(getattr(block, kind), h, cfg, cache)
+        if cache is not None:
+            cache.update(state)
+    x = x + out
+    if kind == "ssm":
+        return x, cache
     return x + block.mlp(block.ln2(x)), cache
 
 
@@ -135,12 +172,19 @@ def block_apply_step(block: Block, x, kind: str, cfg: ModelConfig, cache,
                      cache_len: int, positions, n_valid,
                      window_override=None):
     """One-token decode block.  Returns (x, cache)."""
-    _require_attn_mlp(kind)
-    window = (window_override if window_override is not None
-              else cfg.sliding_window)
-    a_out, cache = _attention_step(block.attn, block.ln1(x), cfg, cache,
-                                   cache_len, positions, n_valid, window)
-    x = x + a_out
+    h = block.ln1(x)
+    if kind in ATTN_KINDS:
+        out, cache = _attention_step(block.attn, h, cfg, cache, cache_len,
+                                     positions, n_valid,
+                                     _window(kind, cfg, window_override))
+    else:
+        step = (ssm_mod.ssm_decode_step if kind == "ssm"
+                else rglru_mod.rglru_decode_step)
+        out, state = step(getattr(block, kind), h, cfg, cache)
+        cache.update(state)
+    x = x + out
+    if kind == "ssm":
+        return x, cache
     return x + block.mlp(block.ln2(x)), cache
 
 
@@ -163,9 +207,11 @@ def stack_apply_step(layers: nn.ModuleList, x, cfg: ModelConfig, caches,
     """One decode step through all layers.  Returns (x, caches)."""
     kinds = cfg.layer_types()
     b = x.shape[0]
-    size = caches[0]["k"].shape[1]
-    # shared by every layer: built once per step, and from host ints, so
-    # the step never waits on the device to find its ring slot
+    # every attention layer's cache has the same size (an SSM stack has
+    # none); the tensors below are shared by every layer: built once per
+    # step, and from host ints, so the step never waits on the device to
+    # find its ring slot
+    size = next((c["k"].shape[1] for c in caches if "k" in c), 0)
     positions = torch.full((b, 1), cache_len, dtype=torch.int64,
                            device=x.device)
     n_valid = torch.full((b,), min(cache_len + 1, size), dtype=torch.int32,
