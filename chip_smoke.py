@@ -9,29 +9,34 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    TF32 off for matmuls and cuDNN, so fp32 means fp32;
 2. build: the four CUDA kernels from ``src/repro_torch/csrc`` with
    ``nvcc`` (sm_90a), in parallel, and ``ptxas``'s register / spill
-   report of every kernel instantiation;
+   report of every kernel instantiation; then, from ``cuobjdump -sass``,
+   the tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions of each
+   bf16 flash instantiation, which must have both;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the serving shapes, at the tolerances of the JAX package's
    ``tests/test_kernels.py`` (bf16 attention: relative to each output
-   row's RMS, see ``TOL``): flash and decode attention at yi-9b's and
-   recurrentgemma-2b's head shapes (bf16 and fp32), the SSD scan (bf16 and
-   fp32 inputs, S 1000 and 512, with and without an initial state) and the
-   RG-LRU scan; then times on the card (CUDA events, inputs rotated past
-   the 50 MB L2) of each kernel, its plain version and, for attention, one
-   PyTorch call as a yardstick (SDPA, never used by the port), beside the
-   least time the card could take (bound);
+   row's RMS, see ``TOL``): flash and decode attention at yi-9b's,
+   recurrentgemma-2b's and stablelm-12b's (Dh 160) head shapes (bf16 and
+   fp32, S 1000 and a ragged S), the SSD scan (bf16 and fp32 inputs, S
+   1000 and 512, with and without an initial state) and the RG-LRU scan;
+   then times on the card (CUDA events, inputs rotated past the 50 MB L2)
+   of each kernel, its plain version and, for attention, one PyTorch call
+   as a yardstick (SDPA, never used by the port), beside the least time
+   the card could take (bound), and for attention the time of the kernel
+   and of SDPA with the host out of the way (``device_ms``); and the decode
+   kernel's time by cache splits (the sweep behind ``split_plan``);
 4. model parity, fp32, one seed, the card (CUDA kernels) against the same
    weights on the CPU (plain versions), prefill logits and three decode
-   steps, at full width: yi-9b (2 layers), mamba2-780m (2 layers) and
-   recurrentgemma-2b (3 layers, one (rglru, rglru, attn) unit; also one
-   2100-token prompt, so that the 2048-slot local ring wraps);
-5. serve: ``repro_torch.serving.executor`` on yi-9b, mamba2-780m and
-   recurrentgemma-2b at full width (all layers, bf16): 8 requests, batch
-   4, prompts of 512 and 1000 tokens, 32 output tokens each; every request
-   answered with in-vocab tokens, all logits finite, and each kernel's
-   launch count (set to 0 before each model's serve, read after it)
-   exactly one per layer of its kind per prefill batch (flash, SSD scan,
-   RG-LRU scan) or per decode step (decode attention).
+   steps, at full width: yi-9b, stablelm-12b and mamba2-780m (2 layers)
+   and recurrentgemma-2b (3 layers, one (rglru, rglru, attn) unit; also
+   one 2100-token prompt, so that the 2048-slot local ring wraps);
+5. serve: ``repro_torch.serving.executor`` on yi-9b, mamba2-780m,
+   recurrentgemma-2b and stablelm-12b at full width (all layers, bf16): 8
+   requests, batch 4, prompts of 512 and 1000 tokens, 32 output tokens
+   each; every request answered with in-vocab tokens, all logits finite,
+   and each kernel's launch count (set to 0 before each model's serve,
+   read after it) exactly one per layer of its kind per prefill batch
+   (flash, SSD scan, RG-LRU scan) or per decode step (decode attention).
 
 The line before the last is the kernels' JSON record (one entry per kernel
 and served model); the last line is ``{"ok": true, "device": {...}}``.
@@ -63,7 +68,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_BYTES = 50 * 2**20
 PARITY_REL = 1e-3  # model parity: max |card - cpu| <= 1e-3 * max |cpu|
-SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b")
+SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b", "stablelm-12b")
+# the attention head shapes served: (H, Hkv, Dh, window)
+HEADS = {"yi-9b": (32, 4, 128, None), "recurrentgemma-2b": (10, 1, 256, 2048),
+         "stablelm-12b": (32, 8, 160, None)}
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
@@ -138,6 +146,32 @@ def time_ms(fn, sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, sets, iters: int) -> float:
+    """Mean ms per call on the card with the host out of the way: the calls
+    are queued behind a spin of the card (``torch.cuda._sleep``) that lasts
+    longer than the host takes to queue them, then timed by CUDA events,
+    so the events see the kernels back to back.  The spin grows until the
+    card is still in it when the last call is queued."""
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin = 20_000_000  # cycles, about 10 ms
+    for _ in range(4):
+        torch.cuda._sleep(spin)
+        start.record()
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        spin *= 4
+    raise AssertionError("the host could not queue the calls within the "
+                         "card's spin")
+
+
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -194,6 +228,33 @@ def phase_build():
                 entry = entry.replace("_ZN12_GLOBAL__N_1", "")
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
+    sass_counts(_build)
+
+
+def sass_counts(build):
+    """HGMMA / UTMALDG per bf16 flash instantiation (cuobjdump -sass of the
+    built library); raises if one has no tensor-core instruction."""
+    exe = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(exe), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found = 0
+    for block in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*flash_bf16ILi(\d+)E", block)
+        if not m:
+            continue
+        found += 1
+        n_mma = block.count("HGMMA")
+        n_tma = block.count("UTMALDG")
+        log(f"  flash_attention bf16 Dh {m.group(1)}: {n_mma} HGMMA, "
+            f"{n_tma} UTMALDG in its SASS")
+        if not n_mma or not n_tma:
+            raise AssertionError(f"flash bf16 Dh {m.group(1)} has no "
+                                 "tensor-core or TMA instruction")
+    if found != 4:
+        raise AssertionError(f"found {found} bf16 flash instantiations in "
+                             "the SASS, expected 4 (Dh 64/128/160/256)")
 
 
 def _randn(gen, *shape, dtype):
@@ -223,7 +284,9 @@ def kernels_attention(gen, errs):
                                          (4, 16, 4, 1000, 64, None),
                                          (4, 10, 1, 1000, 256, 2048),
                                          (1, 10, 1, 2100, 256, 2048),
-                                         (2, 10, 1, 1000, 256, 128)]:
+                                         (2, 10, 1, 1000, 256, 128),
+                                         (4, 32, 8, 1000, 160, None),
+                                         (2, 32, 8, 77, 160, None)]:
             q, k, v = flash_inputs(b, h, hkv, s, dh, dtype)
             got = fl.flash_attention_cuda(q, k, v, causal=True, window=window)
             want = fl.flash_attention_torch(q, k, v, causal=True,
@@ -237,7 +300,9 @@ def kernels_attention(gen, errs):
                 (4, 32, 4, 1032, 128, 256, [1032, 700, 255, 1]),
                 (2, 8, 2, 1032, 64, None, [1032, 77]),
                 (4, 10, 1, 2048, 256, 2048, [2048] * 4),
-                (4, 10, 1, 1032, 256, 2048, [1032, 544, 1, 1000])]:
+                (4, 10, 1, 1032, 256, 2048, [1032, 544, 1, 1000]),
+                (4, 32, 8, 1032, 160, None, [1, 516, 1032, 1001]),
+                (2, 32, 8, 77, 160, None, [77, 40])]:
             q, kc, vc, lengths = decode_inputs(b, h, hkv, s, dh, lens, dtype)
             got = dec.decode_attention_cuda(q, kc, vc, lengths, window=window)
             want = dec.decode_attention_torch(q, kc, vc, lengths,
@@ -322,9 +387,7 @@ def phase_kernels() -> dict:
     records = {}
 
     # prefill attention: the serve's 1000-token batches of 4
-    for path, h, hkv, dh, window in (("yi-9b", 32, 4, 128, None),
-                                     ("recurrentgemma-2b", 10, 1, 256,
-                                      2048)):
+    for path, (h, hkv, dh, window) in HEADS.items():
         b, s = 4, 1000
         nbytes = item * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
         sets = copies(lambda: flash_inputs(b, h, hkv, s, dh, dtype), nbytes)
@@ -333,10 +396,14 @@ def phase_kernels() -> dict:
                     for q, k, v in sets]
         ms = time_ms(lambda q, k, v: fl.flash_attention_cuda(
             q, k, v, window=window), sets, 30)
+        dev_ms = device_ms(lambda q, k, v: fl.flash_attention_cuda(
+            q, k, v, window=window), sets, 30)
         plain_ms = time_ms(lambda q, k, v: fl.flash_attention_torch(
             q, k, v, window=window), sets[:2], 5)
         # within the window (S < 2048) causal and windowed are one mask
         sdpa_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), lib_sets, 30)
+        sdpa_dev = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), lib_sets, 30)
         bound = bound_ms(nbytes, 4 * dh * live_pairs(s, True, window) * b * h,
                          dtype)
@@ -344,12 +411,12 @@ def phase_kernels() -> dict:
             "flash_attention", path,
             f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} causal window={window}",
             errs["flash_attention"], ms, plain_ms, bound, sdpa_ms)
+        records["flash_attention", path].update(device_ms=dev_ms,
+                                                library_device_ms=sdpa_dev)
         del sets, lib_sets
 
     # decode attention: the cache of the serve's 1000-token batches
-    for path, h, hkv, dh, window in (("yi-9b", 32, 4, 128, None),
-                                     ("recurrentgemma-2b", 10, 1, 256,
-                                      2048)):
+    for path, (h, hkv, dh, window) in HEADS.items():
         b, s = 4, 1032
         lens = [s] * b
         nbytes = item * (2 * sum(lens) * hkv * dh + 2 * b * h * dh)
@@ -360,9 +427,13 @@ def phase_kernels() -> dict:
                     for q, kc, vc, _ in sets]
         ms = time_ms(lambda *a: dec.decode_attention_cuda(
             *a, window=window), sets, 200)
+        dev_ms = device_ms(lambda *a: dec.decode_attention_cuda(
+            *a, window=window), sets, 200)
         plain_ms = time_ms(lambda *a: dec.decode_attention_torch(
             *a, window=window), sets, 50)
         sdpa_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v), lib_sets, 200)
+        sdpa_dev = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v), lib_sets, 200)
         bound = bound_ms(nbytes, 4 * dh * h * sum(lens), dtype)
         records["decode_attention", path] = record(
@@ -370,7 +441,11 @@ def phase_kernels() -> dict:
             f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} lengths full "
             f"window={window}", errs["decode_attention"], ms, plain_ms,
             bound, sdpa_ms)
+        records["decode_attention", path].update(device_ms=dev_ms,
+                                                 library_device_ms=sdpa_dev)
         del sets, lib_sets
+
+    split_sweep(decode_inputs)
 
     # SSD scan: mamba2's prefill, bf16 x / B / C, fp32 dt and state
     b, s, h, p, n = 4, 1000, 48, 64, 128
@@ -405,10 +480,42 @@ def phase_kernels() -> dict:
     for r in records.values():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        if "device_ms" in r:
+            lib += (f"; queued on the card: kernel {r['device_ms']:.4f} ms, "
+                    f"library {r['library_device_ms']:.4f} ms")
         log(f"  {r['name']} ({r['path']}) [{r['shape']}]: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib},"
             f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return records
+
+
+def split_sweep(decode_inputs):
+    """Decode time by cache splits per (row, KV head), bf16, batch 4, every
+    slot valid: the serving caches (1032 slots) and the full 2048-slot
+    ring; ``split_plan``'s choice is marked with *."""
+    from repro_torch.kernels import decode_attention as dec
+
+    log("  decode_attention us per call by splits, queued on the card / "
+        "called back to back (CUDA events); bf16, B4, all slots valid; "
+        "* = split_plan:")
+    for path, (h, hkv, dh, window) in HEADS.items():
+        for s in (1032, 2048):
+            b = 4
+            nbytes = 2 * (2 * b * s * hkv * dh + 2 * b * h * dh)
+            sets = copies(lambda: decode_inputs(b, h, hkv, s, dh, [s] * b,
+                                                torch.bfloat16), nbytes)
+            plan = dec.split_plan(b, hkv, s, h // hkv)[0]
+            row = []
+            for n in sorted({1, 2, 4, 6, 8, 12, 16, plan}):
+                def call(*a, n=n):
+                    return dec.decode_attention_cuda(*a, window=window,
+                                                     n_split=n)
+                row.append(f"{n}{'*' if n == plan else ''} "
+                           f"{device_ms(call, sets, 200) * 1e3:.2f}"
+                           f"/{time_ms(call, sets, 300) * 1e3:.2f}")
+            log(f"    {path} Hkv{hkv} G{h // hkv} Dh{dh} S{s} (bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f}): {', '.join(row)}")
+            del sets
 
 
 def counters() -> dict:
@@ -483,6 +590,7 @@ def parity(arch: str, n_layers: int, runs):
 def phase_parity():
     log("[4] model parity: full width, fp32, card vs CPU")
     parity("yi-9b", 2, [(2, 77)])
+    parity("stablelm-12b", 2, [(2, 77)])
     parity("mamba2-780m", 2, [(2, 77)])
     parity("recurrentgemma-2b", 3, [(2, 77), (1, 2100)])
 
@@ -553,8 +661,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t0:.1f} s")
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+            "library_ms", "device_ms", "library_device_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -2,59 +2,79 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention / _flash_kernel).  See
-// repro_torch/kernels/flash_attention.py for the contract, the bound on the
-// H100 and the design; in short:
+// repro_torch/kernels/flash_attention.py for the contract and the bound on
+// the H100.  Two kernels, chosen by dtype:
 //
-//   * grid (ceil(S / BQ), H, B); 128 threads; one block owns BQ queries
-//     of one (batch, head) and loops over K/V tiles of BK = 64 keys staged in
-//     shared memory (the TPU's sequential kv grid axis);
-//   * thread (ty, tx) owns R query rows ty*R .. ty*R+R-1 and key columns
-//     tx + 8*j of each score tile, and the output columns tx + 8*c; the
-//     8 threads of a row group reduce the row max and sum by warp shuffles.
-//     R = 4 (BQ = 64) for head dims up to 128; at Dh 256 R = 2 (BQ = 32),
-//     which halves the accumulator a thread holds (64 floats) and the Q
-//     and P tiles, so the block fits the registers and shared memory;
-//   * the running max m, denominator l and accumulator acc are fp32
-//     registers; masked logits are -1e30 and the denominator is floored at
-//     1e-30, as on the TPU;
-//   * K/V tiles that the causal mask or the window hide from every query of
-//     the block are never loaded; keys and queries past S (the ragged last
-//     tile) are masked here, so any S works;
-//   * q/k/v/o are addressed through (batch, head, seq) strides; the head
-//     dim must be contiguous.
+// bf16 (the serving path): tensor cores, TMA and mbarriers.
+//   * grid (H, B, query tiles), the query tiles launched longest-first (the
+//     last causal tile, which sees the most keys, gets the first blocks).
+//     One block owns BQ = 64 * NWG queries of one (batch, head): NWG
+//     consumer warpgroups of 64 rows each (wgmma's M), and one producer
+//     warpgroup.  NWG = 2 (BQ 128) at Dh 64 / 128 / 160, with setmaxnreg
+//     moving registers from the producer (40) to the consumers (232); at
+//     Dh 256 NWG = 1 (BQ 64), so that the 64 x 256 fp32 accumulator (128
+//     registers a thread) fits beside the score tile without spilling.
+//   * One thread of the producer warpgroup loads Q once and K / V tiles
+//     of BK keys (128 at Dh 64, else 64: at Dh 128 a 128-key score tile
+//     spilled, and the 64-key tile ran 5% faster on the card) by TMA into
+//     a two-stage ring in shared memory;
+//     each stage has a full barrier for K, one for V and an empty barrier
+//     that the consumers arrive on when both products are done.  The
+//     tensor maps are 4-d, (Dh, S, H, B) over the caller's strides, so the
+//     model's (B, S, H, Dh) storage is read as it lies; built on the host
+//     per call and passed as __grid_constant__ parameters.  Tiles are
+//     stored as 64-column blocks with the 128-byte swizzle that the wgmma
+//     descriptors name.  TMA fills rows past S with zeros.
+//   * Dh 160 does not split into 64-element swizzle atoms: the tile is
+//     padded to 192 columns and TMA's out-of-bounds fill writes zeros
+//     there.  Q K^T runs its 10 k-steps over the 160 real columns only;
+//     P V runs at N = 192 and the 32 extra output columns are not stored.
+//   * S = Q K^T by wgmma with both operands in shared memory (K-major, as K
+//     lies).  The online softmax runs in fp32 registers on the
+//     accumulator layout (a row's columns on the 4 lanes of a quad: two
+//     shuffles for the row max; the row sum is kept per lane and reduced
+//     once at the end), in base 2 with scale * log2(e) folded in.  P is
+//     rounded to bf16 in registers and fed to wgmma as the register A
+//     operand of O += P V; V is the shared-memory B operand, MN-major
+//     through the descriptor's transpose bit.
+//   * Masks: key tiles that the causal mask or the window hide from every
+//     query of the block are never loaded.  Only a tile that crosses the
+//     diagonal, the window edge or S computes the mask (masked logits
+//     -inf, which is -1e30 of the TPU kernel for every row that has a
+//     valid key, as every causal or windowed row does); interior tiles
+//     skip the index arithmetic.
+//   * Epilogue: O / max(l, 1e-30) in bf16, stored from registers through
+//     the output strides.
+//
+// fp32 (the card-vs-CPU parity path): the CUDA-core kernel of the first
+// port, with Dh 160 added.  TF32 tensor cores would not meet the fp32
+// tolerance (1e-4 / 1e-5) of the JAX package's tests; the serve runs bf16.
+//   * grid (ceil(S / BQ), H, B); 128 threads; K/V tiles of 64 keys staged in
+//     shared memory; thread (ty, tx) owns R query rows and key columns
+//     tx + 8 j; R = 4 (BQ 64) up to Dh 128, R = 2 (BQ 32) at Dh 160 / 256.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
-// allocates nothing.  The entry returns cudaGetLastError().
+// allocates nothing.  The entry returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape, alignment or tensor map it refuses.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
+                   // through the runtime, so libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BK = 64;
-constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
   int64_t b, h, s;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// ------------------------------------------------------------------ fp32 --
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int BK32 = 64;
+constexpr int THREADS32 = 128;
 
 // query rows per thread, and the block's query tile BQ = 16 * R
 template <int D>
@@ -63,20 +83,22 @@ __host__ __device__ constexpr int rows_per_thread() {
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes_fp32() {
   // Q and K rows padded to D + 1 floats and P rows to BK + 1 floats, so
   // that the threads of a warp hit distinct banks.
   constexpr size_t BQ = 16 * rows_per_thread<D>();
-  return sizeof(float) * (BQ * (D + 1) + size_t(BK) * (D + 1) +
-                          size_t(BK) * D + BQ * (BK + 1));
+  return sizeof(float) * (BQ * (D + 1) + size_t(BK32) * (D + 1) +
+                          size_t(BK32) * D + BQ * (BK32 + 1));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int group, int S,
-                 Strides sq, Strides sk, Strides sv, Strides so, int causal,
-                 int window, float scale) {
+template <int D>
+__global__ void __launch_bounds__(THREADS32)
+    flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int group,
+               int S, Strides sq, Strides sk, Strides sv, Strides so,
+               int causal, int window, float scale) {
+  constexpr int BK = BK32;
+  constexpr int THREADS = THREADS32;
   constexpr int R = rows_per_thread<D>();
   constexpr int BQ = 16 * R;
   constexpr int DP = D + 1;
@@ -96,15 +118,15 @@ __global__ void __launch_bounds__(THREADS)
   const int b = blockIdx.z;
   const int hk = h / group;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
-  T* ob = o + b * so.b + h * so.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int qi = q0 + r;
-    Qs[r * DP + d] = qi < S ? to_float(qb[qi * sq.s + d]) : 0.f;
+    Qs[r * DP + d] = qi < S ? qb[qi * sq.s + d] : 0.f;
   }
 
   float m[R], l[R], acc[R][CPT];
@@ -130,11 +152,10 @@ __global__ void __launch_bounds__(THREADS)
       const int r = i / D, d = i % D;
       const int ki = k0 + r;
       const bool in = ki < S;
-      Ks[r * DP + d] = in ? to_float(kb[ki * sk.s + d]) : 0.f;
-      Vs[r * D + d] = in ? to_float(vb[ki * sv.s + d]) : 0.f;
+      Ks[r * DP + d] = in ? kb[ki * sk.s + d] : 0.f;
+      Vs[r * D + d] = in ? vb[ki * sv.s + d] : 0.f;
     }
     __syncthreads();
-
     float s[R][8];
 #pragma unroll
     for (int i = 0; i < R; ++i)
@@ -209,29 +230,631 @@ __global__ void __launch_bounds__(THREADS)
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < CPT; ++c)
-        ob[qi * so.s + tx + 8 * c] = from_float<T>(acc[i][c] / denom);
+        ob[qi * so.s + tx + 8 * c] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Hkv, int S, Strides sq, Strides sk,
-                   Strides sv, Strides so, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+template <int D>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
+                        int B, int H, int Hkv, int S, Strides sq, Strides sk,
+                        Strides sv, Strides so, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes_fp32<D>();
   // Above 48 KB of dynamic shared memory the launch is refused unless the
   // kernel opts in.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      flash_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   constexpr int BQ = 16 * rows_per_thread<D>();
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / Hkv, S, sq, sk, sv,
-      so, causal, window, scale);
+  flash_fp32<D><<<grid, THREADS32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H / Hkv, S, sq,
+      sk, sv, so, causal, window, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ bf16 --
+
+// One tile geometry per head dim.
+template <int D>
+struct Tile {
+  static constexpr int DP = (D + 63) / 64 * 64;  // padded to swizzle atoms
+  static constexpr int CB = DP / 64;             // 64-column blocks
+  static constexpr int NWG = D <= 160 ? 2 : 1;   // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int BK = D < 128 ? 128 : 64;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = NWG * 128 + 128;  // + a producer warpgroup
+  static constexpr uint32_t Q_BYTES = BQ * DP * 2;
+  static constexpr uint32_t KV_BYTES = BK * DP * 2;
+  // + 1024: the dynamic segment is aligned up to the swizzle atom
+  static constexpr size_t SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that
+// never completes (a fault in the pipeline) traps after 2^24 polls
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box of a 4-d (Dh, S, H, B) tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (atoms of 8 rows of
+// 128 bytes, 1024-byte aligned).  lbo / sbo in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses to wgmma's registers across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Move registers between warpgroups (2 x 128 x 232 + 128 x 40 <= 65536).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  // d(64 x 64) = (scale_d ? d : 0) + A(64 x 16) B(64 x 16)^T; A and B in
+  // shared memory, both K-major
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // d(64 x 64) += A(64 x 16) B(16 x 64); A in registers, B in shared
+  // memory, MN-major (the transpose bit set)
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d(64 x 128) = (scale_d ? d : 0) + A(64 x 16) B(128 x 16)^T; A and B in
+  // shared memory, both K-major
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // d(64 x 128) += A(64 x 16) B(16 x 128); A in registers, B in shared
+  // memory, MN-major (the transpose bit set)
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  // d(64 x 192) += A(64 x 16) B(16 x 192); A in registers, B in shared
+  // memory, MN-major (the transpose bit set)
+  static __device__ __forceinline__ void rs(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, 1, 1, 1, 1;\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // d(64 x 256) += A(64 x 16) B(16 x 256); A in registers, B in shared
+  // memory, MN-major (the transpose bit set)
+  static __device__ __forceinline__ void rs(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(Tile<D>::THREADS, 1)
+    flash_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               __nv_bfloat16* __restrict__ o, Strides so, int group, int S,
+               int causal, int window, float scale_log2) {
+  using C = Tile<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, DP = C::DP, CB = C::CB;
+  constexpr int ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_k[ST], bar_v[ST], bar_free[ST];
+
+  // Q: CB blocks of BQ x 64; each K / V stage: CB blocks of BK x 64
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk0 = sq + C::Q_BYTES;
+  const uint32_t sv0 = sk0 + ST * C::KV_BYTES;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest first
+  const int hk = h / group;
+
+  // Key tiles some query of the block can see (the TPU kernel's `live`).
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int k_end = causal ? min(S, q_last + 1) : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_free[s], C::NWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == C::NWG) {
+    // ---- producer warpgroup: one thread starts every TMA load; the
+    // warpgroup gives its registers to the consumers ----
+    if constexpr (C::NWG == 2) setmaxnreg_dec<40>();
+    if (tid == C::NWG * 128) {
+      mbar_expect_tx(&bar_q, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        tma_load(sq + c * BQ * 128, &tq, &bar_q, c * 64, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST;
+        const uint32_t round = t / ST;
+        mbar_wait(&bar_free[s], (round & 1) ^ 1);  // round 0 passes
+        const int k0 = k_begin + t * BK;
+        mbar_expect_tx(&bar_k[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          tma_load(sk0 + s * C::KV_BYTES + c * BK * 128, &tk, &bar_k[s],
+                   c * 64, k0, hk, b);
+        mbar_expect_tx(&bar_v[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          tma_load(sv0 + s * C::KV_BYTES + c * BK * 128, &tv, &bar_v[s],
+                   c * 64, k0, hk, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: query rows q0 + 64 wg .. + 63 ----
+  if constexpr (C::NWG == 2) setmaxnreg_inc<232>();
+  const int lane = tid & 31;
+  const int warp = (tid & 127) >> 5;
+  const int row_lo = q0 + wg * 64;           // first row of the warpgroup
+  const int qa = row_lo + warp * 16 + (lane >> 2);  // this thread's rows
+  const int qb = qa + 8;
+  const int cq = 2 * (lane & 3);  // first of this thread's column pairs
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  const uint32_t q_wg = sq + wg * 64 * 128;
+  mbar_wait(&bar_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % ST;
+    const uint32_t parity = (t / ST) & 1;
+    const int k0 = k_begin + t * BK;
+    const uint32_t k_st = sk0 + s * C::KV_BYTES;
+    const uint32_t v_st = sv0 + s * C::KV_BYTES;
+
+    // S = Q K^T: D / 16 k-steps; a k-step is 32 bytes inside a 64-column
+    // block, and the next block starts a whole block further on.
+    float sc[BK / 2];
+    mbar_wait(&bar_k[s], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      const uint32_t blk = kk >> 2;
+      Wgmma<BK>::ss(sc, sw128_desc(q_wg + blk * BQ * 128 + off, 16, 1024),
+                    sw128_desc(k_st + blk * BK * 128 + off, 16, 1024),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // Mask only where the tile crosses S, the diagonal or the window edge
+    // for some row of this warpgroup.
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > row_lo) ||
+                      (window > 0 && k0 <= row_lo + 63 - window);
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float xa = sc[4 * j + e] * scale_log2;
+        float xb = sc[4 * j + 2 + e] * scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * j + cq + e;
+          const bool in = key < S;
+          if (!(in && (!causal || key <= qa) &&
+                (window <= 0 || key > qa - window)))
+            xa = -INFINITY;
+          if (!(in && (!causal || key <= qb) &&
+                (window <= 0 || key > qb - window)))
+            xb = -INFINITY;
+        }
+        sc[4 * j + e] = xa;
+        sc[4 * j + 2 + e] = xb;
+        mx_a = fmaxf(mx_a, xa);
+        mx_b = fmaxf(mx_b, xb);
+      }
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    // m starts at -1e30 (finite), so a fully masked row gives p = 0
+    const float corr_a = exp2f(m_a - mx_a);
+    const float corr_b = exp2f(m_b - mx_b);
+    m_a = mx_a;
+    m_b = mx_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = exp2f(sc[4 * j + e] - mx_a);
+        sc[4 * j + 2 + e] = exp2f(sc[4 * j + 2 + e] - mx_b);
+        sum_a += sc[4 * j + e];
+        sum_b += sc[4 * j + 2 + e];
+      }
+    }
+    l_a = l_a * corr_a + sum_a;  // this lane's share; the quad sums at the end
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      acc[4 * j] *= corr_a;
+      acc[4 * j + 1] *= corr_a;
+      acc[4 * j + 2] *= corr_b;
+      acc[4 * j + 3] *= corr_b;
+    }
+    // The score accumulator's layout is wgmma's register-A layout: k-step
+    // kk takes score columns 16 kk .. 16 kk + 15.
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+
+    // O += P V: k-step kk is keys 16 kk .. 16 kk + 15, i.e. two 8-row atoms
+    // (2048 bytes) down each column block; N runs over the DP / 64 column
+    // blocks, BK * 128 bytes apart.
+    mbar_wait(&bar_v[s], parity);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<DP>::rs(acc, pa[kk],
+                    sw128_desc(v_st + kk * 2048, BK * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&bar_free[s]);
+  }
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + cq;
+    if (8 * j < D) {  // D is a multiple of 8: the padding is never stored
+      if (qa < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + qa * so.s + col) =
+            __floats2bfloat162_rn(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+      if (qb < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + qb * so.s + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * inv_b,
+                                  acc[4 * j + 3] * inv_b);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// (Dh, S, H, B) map over bf16 storage; strides in elements; a box is 64
+// columns by `rows` positions of one head.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+              Strides st, int rows) {
+  EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(st.s) * 2, cuuint64_t(st.h) * 2,
+                                 cuuint64_t(st.b) * 2};
+  const cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool tma_ok(const void* p, Strides st) {
+  // TMA: 16-byte aligned base, strides multiples of 16 bytes
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && st.s % 8 == 0 &&
+         st.h % 8 == 0 && st.b % 8 == 0;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int B, int H, int Hkv, int S, Strides sq, Strides sk,
+                        Strides sv, Strides so, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  using C = Tile<D>;
+  if (!tma_ok(q, sq) || !tma_ok(k, sk) || !tma_ok(v, sv) ||
+      (reinterpret_cast<uintptr_t>(o) & 3) || (so.s | so.h | so.b) & 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, S, H, B, sq, C::BQ) ||
+      !make_map(&tk, k, D, S, Hkv, B, sk, C::BK) ||
+      !make_map(&tv, v, D, S, Hkv, B, sv, C::BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(C::SMEM));
+  if (err != cudaSuccess) return err;
+  dim3 grid(H, B, (S + C::BQ - 1) / C::BQ);
+  flash_bf16<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, H / Hkv, S, causal,
+      window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -251,24 +874,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
       so{sob, soh, sos};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so, causal,
-                             window, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so,
-                              causal, window, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so,
-                                     causal, window, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, Hkv, S, sq, sk, sv,
-                                      so, causal, window, scale, st);
-  if (dtype == 0 && D == 256)
-    return launch<float, 256>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so,
-                              causal, window, scale, st);
-  if (dtype == 1 && D == 256)
-    return launch<__nv_bfloat16, 256>(q, k, v, o, B, H, Hkv, S, sq, sk, sv,
-                                      so, causal, window, scale, st);
+#define REPRO_FLASH_CASE(DD)                                                 \
+  if (D == DD)                                                               \
+    return dtype == 0                                                        \
+               ? launch_fp32<DD>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so,   \
+                                 causal, window, scale, st)                  \
+               : launch_bf16<DD>(q, k, v, o, B, H, Hkv, S, sq, sk, sv, so,   \
+                                 causal, window, scale, st);
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  REPRO_FLASH_CASE(64)
+  REPRO_FLASH_CASE(128)
+  REPRO_FLASH_CASE(160)
+  REPRO_FLASH_CASE(256)
+#undef REPRO_FLASH_CASE
   return cudaErrorInvalidValue;
 }
 

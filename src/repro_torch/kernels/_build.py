@@ -101,6 +101,16 @@ def library(name: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
+def current_stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on a card: the stream a
+    kernel launches on.  (``torch.cuda.current_stream().cuda_stream``
+    gives the same handle through a Python stream object, at several
+    microseconds a call on the H100 host: too slow for a decode step that
+    waits on the host.)"""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def check(lib: ctypes.CDLL, err: int, name: str):
     """Raise if a launch returned a CUDA error (e.g. a refused launch)."""
     if err != 0:

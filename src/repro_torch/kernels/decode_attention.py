@@ -10,19 +10,22 @@ G = H / Hkv query heads of one KV head, so the cache is read once.
 
 What bounds it on the H100: the bytes of the valid part of the KV cache
 (the operations are 4*Dh per head and slot, far below the card's ratio of
-operations to bytes).  Design: flash-decoding.  One block per (cache
-split, KV head, batch row) reads its slice of the cache once for all G
-heads, four warps each keeping an fp32 online softmax, four slots' loads
-in flight per warp; a second small kernel combines the splits' partial
-(max, denominator, accumulator).  Splitting the cache length fills the
-132 SMs where B * Hkv blocks (16 for yi-9b at batch 4) could not.  With
-recurrentgemma's one KV head at batch 4 the rule gives 68 blocks at a
-1032-slot cache and 128 when the 2048-slot ring is full; splits of fewer
-slots would give more blocks but lengthen the combine, whose threads walk
-the splits one by one (the larger cost on the card, see ``PERF.md``).  The
-partials are allocated here with ``torch.empty``; the kernels allocate
-nothing.  ``lengths`` stays on the device: the blocks read it themselves,
-so a decode step never waits on the host.
+operations to bytes).  Design: flash-decoding in one launch.  The
+``n_split`` blocks of one (batch row, KV head, head block) form a thread
+block cluster; each streams its slice of the cache through a ring of
+shared-memory tiles by ``cp.async`` (16-byte copies) and keeps an fp32
+online softmax for its heads, and the blocks then merge their (max,
+denominator, accumulator) through distributed shared memory, each writing
+its own share of the outputs.  A block serves at most 5 query heads
+(``heads_per_block``): G 8 and 16 run as blocks of 4, G 10 as two blocks
+of 5, which keeps a lane's accumulator small and gives more blocks.
+Nothing is allocated per call but the output.  Splitting the cache length
+fills the 132 SMs where B * Hkv (16 for yi-9b at batch 4, 4 for
+recurrentgemma) could not; ``split_plan`` is the rule the card's sweep
+chose (``PERF.md``).  ``lengths`` stays on the device: the blocks
+read it themselves, so a decode step never waits on the host.  The cache
+rows must be 16-byte aligned (base and strides), as the model's caches
+are.
 """
 from __future__ import annotations
 
@@ -33,19 +36,29 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0  # launches of the CUDA kernel pair (plain calls not counted)
+launches = 0  # launches of the CUDA kernel (plain calls not counted)
 
 NEG_INF = -1e30
 # head dim -> query heads per KV head the kernel is built for (Dh 256 with
 # group 10 is recurrentgemma's shape)
-GROUPS = {64: (1, 2, 4, 8, 16), 128: (1, 2, 4, 8, 16), 256: (10,)}
+GROUPS = {64: (1, 2, 4, 8, 16), 128: (1, 2, 4, 8, 16), 160: (4,),
+          256: (10,)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100
+MAX_SPLIT = 16            # the largest thread block cluster of an H100
+_TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100 (the sweep's best)
 _MIN_SPLIT = 64           # fewest cache slots worth a block of their own
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 +
-             [ctypes.c_int64] * 10 +
-             [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = [ctypes.c_void_p] * 7
+_lib = None  # the loaded library, once built
+_plans: dict = {}  # launch signature -> _Params (checked once)
+
+
+class _Params(ctypes.Structure):
+    """The C entry's ``Params``: a launch's shape, strides and scalars."""
+    _fields_ = ([(n, ctypes.c_int64) for n in (
+        "dtype", "B", "Hkv", "G", "S", "D", "n_split", "chunk", "sqb", "sqh",
+        "skb", "sks", "skh", "svb", "svs", "svh", "sob", "soh", "window")]
+        + [("scale", ctypes.c_double)])
 
 
 def decode_attention_torch(q, k_cache, v_cache, lengths, *,
@@ -82,6 +95,11 @@ def _check(q, k_cache, v_cache, lengths, window):
         if t.stride(-1) != 1:
             raise ValueError(f"decode_attention_cuda: {name} needs unit "
                              "stride on the head dim")
+    vec = 16 // k_cache.element_size()  # elements in a 16-byte load
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
+            raise ValueError(f"decode_attention_cuda: {name} rows must be "
+                             "16-byte aligned (base and strides)")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention_cuda: shapes q {tuple(q.shape)}"
                          f" k {tuple(k_cache.shape)} v "
@@ -104,41 +122,80 @@ def _check(q, k_cache, v_cache, lengths, window):
         raise ValueError("decode_attention_cuda: window must be >= 1")
 
 
-def split_plan(b: int, hkv: int, s: int) -> tuple[int, int]:
-    """(number of cache splits, slots per split) for a launch."""
-    n_split = max(1, min(-(-_TARGET_BLOCKS // (b * hkv)), -(-s // _MIN_SPLIT)))
+def heads_per_block(g: int) -> int:
+    """Query heads one block serves of a group of ``g`` (the kernel's
+    ``heads_per_block``): up to 5, so a lane's accumulator stays small."""
+    return g if g <= 4 else 5 if g % 5 == 0 else 4
+
+
+def split_plan(b: int, hkv: int, s: int, g: int = 1) -> tuple[int, int]:
+    """(number of cache splits, slots per split) for a launch over ``s``
+    cache slots, ``b`` rows, ``hkv`` KV heads of ``g`` query heads each.
+
+    The rule the card's sweep chose (``PERF.md``): split each
+    (row, KV head, head block) until the launch has about two blocks per SM,
+    with at least 64 slots a split and at most 16 splits (one cluster)."""
+    blocks = b * hkv * (g // heads_per_block(g))
+    n_split = max(1, min(-(-_TARGET_BLOCKS // blocks), -(-s // _MIN_SPLIT),
+                         MAX_SPLIT))
     chunk = -(-s // n_split)
     return -(-s // chunk), chunk
 
 
-def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
-                          window: int | None = None):
-    """Launch the kernels.  Same contract as ``decode_attention_torch``;
-    every ``lengths[b]`` must be >= 1 (a row with no valid slot gives 0,
-    as the TPU kernel does)."""
-    global launches
+def _plan(q, k_cache, v_cache, lengths, window, n_split) -> _Params:
+    """Check a launch signature once and build its parameters."""
     _check(q, k_cache, v_cache, lengths, window)
-    lib = _build.library("decode_attention", _ARGTYPES)
     b, h, dh = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    g = h // hkv
-    n_split, chunk = split_plan(b, hkv, s)
-    with torch.cuda.device(q.device):
-        o = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
-        part_ml = torch.empty((2, b, hkv, n_split, g), dtype=torch.float32,
-                              device=q.device)
-        part_acc = torch.empty((b, hkv, n_split, g, dh),
-                               dtype=torch.float32, device=q.device)
-        err = lib.decode_attention_launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), part_ml[0].data_ptr(),
-            part_ml[1].data_ptr(), part_acc.data_ptr(),
-            _DTYPES[q.dtype], b, hkv, g, s, dh, n_split, chunk,
-            q.stride(0), q.stride(1), k_cache.stride(0), k_cache.stride(1),
-            k_cache.stride(2), v_cache.stride(0), v_cache.stride(1),
-            v_cache.stride(2), o.stride(0), o.stride(1),
-            -1 if window is None else window, 1.0 / math.sqrt(dh),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "decode_attention")
+    if n_split is None:
+        n_split, chunk = split_plan(b, hkv, s, h // hkv)
+    else:
+        if not 1 <= n_split <= min(s, MAX_SPLIT):
+            raise ValueError(f"decode_attention_cuda: n_split {n_split} not "
+                             f"in 1..{min(s, MAX_SPLIT)}")
+        chunk = -(-s // n_split)
+    # the output is allocated contiguous: strides (h * dh, dh)
+    return _Params(_DTYPES[q.dtype], b, hkv, h // hkv, s, dh, n_split, chunk,
+                   *q.stride()[:2], *k_cache.stride()[:3],
+                   *v_cache.stride()[:3], h * dh, dh,
+                   -1 if window is None else window, 1.0 / math.sqrt(dh))
+
+
+def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
+                          window: int | None = None,
+                          n_split: int | None = None):
+    """Launch the kernel.  Same contract as ``decode_attention_torch``;
+    every ``lengths[b]`` must be >= 1 (a row with no valid slot gives 0,
+    as the TPU kernel does).  ``n_split`` overrides ``split_plan`` (the
+    card's sweep of the rule uses it).
+
+    The decode step is host-bound, so a call checks the full contract once
+    per signature (shapes, strides, dtypes, devices, window, split) and
+    then only the cache's alignment; it allocates only the output."""
+    global launches, _lib
+    key = (q.shape, q.stride(), q.dtype, q.device, k_cache.shape,
+           k_cache.stride(), k_cache.dtype, k_cache.device, v_cache.shape,
+           v_cache.stride(), v_cache.dtype, v_cache.device, lengths.shape,
+           lengths.stride(), lengths.dtype, lengths.device, window, n_split)
+    params = _plans.get(key)
+    if params is None:
+        params = _plans[key] = _plan(q, k_cache, v_cache, lengths, window,
+                                     n_split)
+    kp, vp = k_cache.data_ptr(), v_cache.data_ptr()
+    if (kp | vp) % 16:
+        raise ValueError("decode_attention_cuda: cache rows must be 16-byte "
+                         "aligned")
+    if _lib is None:
+        _lib = _build.library("decode_attention", _ARGTYPES)
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return decode_attention_cuda(q, k_cache, v_cache, lengths,
+                                         window=window, n_split=n_split)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = _lib.decode_attention_launch(
+        q.data_ptr(), kp, vp, lengths.data_ptr(), o.data_ptr(),
+        ctypes.addressof(params), _build.current_stream(q.device.index))
+    if err:
+        _build.check(_lib, err, "decode_attention")
     launches += 1
     return o

@@ -11,18 +11,22 @@ denominator floored at 1e-30.
 What bounds it on the H100: at the serving shapes (B=4, H=32, S <= 1000,
 Dh=128) the bytes of q/k/v/o and the causal matmul operations are of the
 same order; with S growing the operations (4*Dh per live query-key pair)
-take over.  Design: one thread block per (query tile of 64, head, batch)
-and a loop over K/V tiles of 64 staged in shared memory takes the place of
-the TPU's sequential kv grid axis, so q/k/v are read from device memory
-once per query tile and the (S x S) scores never leave the block.  At
-Dh 256 (recurrentgemma) the query tile is 32, which keeps a thread's
-accumulator at 64 floats and the block's tiles in shared memory.  Tiles
-the mask hides completely are never loaded.  Any S works: the ragged last
-tile is masked in the kernel (the TPU kernel required S to be a multiple
-of its block).  q/k/v/o are read and written through their strides, so the
-model's (B, S, H, Dh) -> (B, H, S, Dh) transpose stays a view.  This first
-kernel multiplies on the CUDA cores in fp32; tensor cores (``wgmma``) and
-TMA are later work.
+take over, so the bf16 kernel is built on the tensor cores.
+
+Design (bf16, the serving path): one thread block per (head, batch row,
+query tile of 128; 64 at Dh 256), two consumer warpgroups multiplying with
+``wgmma`` (Q K^T from shared memory, P V with P in registers) and a
+producer warpgroup keeping K/V tiles in flight by TMA in a two-stage ring;
+the online softmax in fp32 registers; fully masked key tiles never loaded and
+only edge tiles masked; query tiles launched longest-first.  Dh 160
+(stablelm-12b) is padded to 192 columns in shared memory by TMA's zero
+fill.  fp32 inputs (the card-vs-CPU parity checks) run the CUDA-core
+kernel of the first port.  Any S works: the ragged last tile is masked in
+the kernel (the TPU kernel required S to be a multiple of its block).
+q/k/v/o are read and written through their strides, so the model's
+(B, S, H, Dh) -> (B, H, S, Dh) transpose stays a view; the bf16 kernel's
+TMA needs 16-byte aligned bases and strides, which the wrapper checks.
+The source note in ``csrc/flash_attention.cu`` has the details.
 """
 from __future__ import annotations
 
@@ -36,12 +40,13 @@ from repro_torch.kernels import _build
 launches = 0  # launches of the CUDA kernel (plain-version calls not counted)
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
              [ctypes.c_int64] * 12 +
              [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_lib = None  # the loaded library, once built
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True,
@@ -96,23 +101,42 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention_cuda: empty input")
     if window is not None and window < 1:
         raise ValueError("flash_attention_cuda: window must be >= 1")
+    if q.dtype == torch.bfloat16:
+        # TMA: 16-byte aligned base addresses and strides
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(
+                    st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1):
+                raise ValueError(f"flash_attention_cuda: bf16 {name} needs "
+                                 "16-byte aligned base and strides")
+
+
+def _strides(t) -> list[int]:
+    """(batch, head, seq) strides in elements; a dimension of size 1 gets
+    the head dim's (any stride is valid there, and the tensor map wants a
+    multiple of 16 bytes)."""
+    return [st if n > 1 else t.shape[3]
+            for st, n in zip(t.stride()[:3], t.shape[:3])]
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int | None = None):
     """Launch the kernel.  Same contract as ``flash_attention_torch``."""
-    global launches
+    global launches, _lib
     _check(q, k, v, window)
-    lib = _build.library("flash_attention", _ARGTYPES)
+    if _lib is None:
+        _lib = _build.library("flash_attention", _ARGTYPES)
     b, h, s, dh = q.shape
-    with torch.cuda.device(q.device):
-        o = torch.empty_like(q)
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], b, h, k.shape[1], s, dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], int(causal), -1 if window is None else window,
-            1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "flash_attention")
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    o = torch.empty_like(q)
+    err = _lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPES[q.dtype], b, h, k.shape[1], s, dh,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(o), int(causal),
+        -1 if window is None else window, 1.0 / math.sqrt(dh),
+        _build.current_stream(q.device.index))
+    _build.check(_lib, err, "flash_attention")
     launches += 1
     return o

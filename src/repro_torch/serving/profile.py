@@ -9,8 +9,9 @@ and CUDA activities) two windows: one prefill of the batch, and
 ``--steps`` decode steps.  For each window it prints one JSON line: host
 wall time (synchronised), device busy time (the union of the kernels'
 intervals on the card), the device's idle share of the wall time, the
-number of kernels, and the kernels with the most device time.  The
-traces go to ``--trace-dir`` as Chrome traces when it is given.
+number of kernels, the kernels with the most device time, and each of
+the port's own kernels that ran (count, ms, and us a call).  The traces go
+to ``--trace-dir`` as Chrome traces when it is given.
 
 Device numbers need the card; on ``--device cpu`` the script reports the
 host wall time only and names the device numbers "not measured".
@@ -28,6 +29,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.kernels import _build
 from repro_torch.serving.executor import _sync, build_model
 
 
@@ -56,6 +58,12 @@ def window_report(name: str, prof, wall_s: float, steps: int,
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    # the hand-written kernels live in anonymous namespaces and are named
+    # after their sources (flash_bf16 / flash_fp32, decode_kernel,
+    # ssd_kernel, rglru_kernel)
+    ours = sorted((n, c, ms) for n, (c, ms) in by_name.items()
+                  if any(f"(anonymous namespace)::{src.split('_')[0]}_" in n
+                         for src in _build.SOURCES))
     out.update({
         "device_busy_ms_per_step": busy / steps,
         "device_idle_share": 1.0 - busy / (wall_s * 1e3),
@@ -63,6 +71,8 @@ def window_report(name: str, prof, wall_s: float, steps: int,
         "top_kernels": [{"name": n[:90], "count": c, "ms": ms,
                          "share_of_busy": ms / busy}
                         for n, (c, ms) in ranked],
+        "port_kernels": [{"name": n[:90], "count": c, "ms": ms,
+                          "us_per_call": ms * 1e3 / c} for n, c, ms in ours],
     })
     return out
 

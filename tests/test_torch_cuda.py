@@ -8,11 +8,12 @@ card and without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of the JAX package's ``tests/test_kernels.py``:
-fp32 kernels 1e-4 / 1e-5, the SSD scan 1e-4 on outputs divided by max
-|reference|, the RG-LRU scan 1e-5.  The shapes are the new kernels' and
-recurrentgemma's attention head shape (Dh 256, ten query heads on one KV
-head), at a small batch and length; ``chip_smoke.py`` checks the serving
-shapes.
+fp32 kernels 1e-4 / 1e-5, bf16 3e-2 / 3e-2 (attention: on outputs divided
+by each row's RMS over Dh, as ``chip_smoke.py`` checks them), the SSD scan
+1e-4 on outputs divided by max |reference|, the RG-LRU scan 1e-5.  Shapes
+are small in batch and length and real in head dim and group (every head
+dim and group the attention kernels are built for); ``chip_smoke.py``
+checks the serving shapes.
 """
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ pytestmark = pytest.mark.cuda
 FP32 = dict(rtol=1e-4, atol=1e-5)  # test_kernels.py:19-21
 SSD_TOL = 1e-4                     # test_kernels.py:87-90, scale-normalised
 SCAN = dict(rtol=1e-5, atol=1e-5)  # test_kernels.py:104
+BF16 = 3e-2                        # test_kernels.py:19-21
 
 
 @pytest.fixture
@@ -94,3 +96,108 @@ def test_attention_kernels_at_the_hybrid_head_shape(cuda, window):
         tdecode.decode_attention_cuda(q, kc, vc, lengths, window=window),
         tdecode.decode_attention_torch(q, kc, vc, lengths, window=window),
         **FP32)
+
+
+def close_rows(got, want, dtype):
+    """fp32: rtol 1e-4 / atol 1e-5.  bf16: rtol = atol = 3e-2 on outputs
+    divided by their row's RMS over the head dim."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **FP32)
+        return
+    rms = want.float().pow(2).mean(-1, keepdim=True).sqrt() + 1e-9
+    torch.testing.assert_close(got.float() / rms, want.float() / rms,
+                               rtol=BF16, atol=BF16)
+
+
+# head dim -> (query heads, KV heads) of an arch that uses it
+FLASH_HEADS = {64: (8, 2), 128: (8, 1), 160: (8, 2), 256: (10, 1)}
+
+
+@pytest.mark.parametrize("dh", sorted(FLASH_HEADS))
+@pytest.mark.parametrize("s", [77, 1000])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_matches_plain_version(cuda, dh, s, window, dtype):
+    """The model's (B, S, H, Dh) storage read as (B, H, S, Dh) views, an S
+    that is a multiple of no tile, causal with and without a window."""
+    h, hkv = FLASH_HEADS[dh]
+    rng = np.random.default_rng(dh + s)
+    q, k, v = (on(cuda, rng, 2, s, n, dh).to(dtype).transpose(1, 2)
+               for n in (h, hkv, hkv))
+    before = tflash.launches
+    got = tflash.flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = tflash.flash_attention_torch(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    close_rows(got, want, dtype)
+
+
+@pytest.mark.parametrize("dh", sorted(FLASH_HEADS))
+def test_flash_bf16_kernel_without_causal_mask(cuda, dh):
+    """Contiguous (B, H, S, Dh) inputs and no mask: only the ragged last
+    key tile is masked."""
+    h, hkv = FLASH_HEADS[dh]
+    rng = np.random.default_rng(dh)
+    q = on(cuda, rng, 1, h, 200, dh).bfloat16()
+    k, v = (on(cuda, rng, 1, hkv, 200, dh).bfloat16() for _ in range(2))
+    close_rows(tflash.flash_attention_cuda(q, k, v, causal=False),
+               tflash.flash_attention_torch(q, k, v, causal=False),
+               torch.bfloat16)
+
+
+def decode_cases():
+    for dh, groups in sorted(tdecode.GROUPS.items()):
+        for g in groups:
+            yield dh, g
+
+
+@pytest.mark.parametrize("dh,g", list(decode_cases()))
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_matches_plain_version(cuda, dh, g, window, dtype):
+    """Every (head dim, group) the kernel is built for; rows of length 1,
+    one that ends inside a split, and a full cache."""
+    rng = np.random.default_rng(dh * g)
+    b, hkv, s = 3, 2, 1032
+    q = on(cuda, rng, b, hkv * g, dh).to(dtype)
+    kc, vc = (on(cuda, rng, b, s, hkv, dh).to(dtype) for _ in range(2))
+    lengths = torch.tensor([1, 517, s], dtype=torch.int32, device=cuda)
+    before = tdecode.launches
+    got = tdecode.decode_attention_cuda(q, kc, vc, lengths, window=window)
+    want = tdecode.decode_attention_torch(q, kc, vc, lengths, window=window)
+    torch.cuda.synchronize()
+    assert tdecode.launches == before + 1
+    close_rows(got, want, dtype)
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 8, 16])
+def test_decode_kernel_any_split(cuda, n_split):
+    """The merge across a cluster of any size up to 16 blocks, at
+    recurrentgemma's head shape, the 2048-slot ring full and half full."""
+    rng = np.random.default_rng(n_split)
+    q = on(cuda, rng, 2, 10, 256).bfloat16()
+    kc, vc = (on(cuda, rng, 2, 2048, 1, 256).bfloat16() for _ in range(2))
+    lengths = torch.tensor([2048, 1024], dtype=torch.int32, device=cuda)
+    close_rows(tdecode.decode_attention_cuda(q, kc, vc, lengths,
+                                             window=2048, n_split=n_split),
+               tdecode.decode_attention_torch(q, kc, vc, lengths,
+                                              window=2048), torch.bfloat16)
+
+
+def test_one_decode_call_is_one_kernel_launch(cuda):
+    """The splits are merged inside the launch: one kernel on the card per
+    call (read from the profiler), and no other kernel."""
+    rng = np.random.default_rng(3)
+    q = on(cuda, rng, 4, 32, 128).bfloat16()
+    kc, vc = (on(cuda, rng, 4, 1032, 4, 128).bfloat16() for _ in range(2))
+    lengths = torch.full((4,), 1032, dtype=torch.int32, device=cuda)
+    tdecode.decode_attention_cuda(q, kc, vc, lengths)  # build, warm up
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tdecode.decode_attention_cuda(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels

@@ -155,11 +155,13 @@ def test_attention_plain_at_the_hybrid_head_shape(window, dtype):
 
 
 def test_decode_split_plan_with_one_kv_head():
-    """recurrentgemma at batch 4 has four (row, KV head) pairs: the cache
-    is split into 17 blocks' worth at 1032 slots and 32 when the 2048-slot
-    ring is full, every slot in exactly one split."""
-    for s, want in ((1032, (17, 61)), (2048, (32, 64)), (2100, (33, 64))):
-        n_split, chunk = tdecode.split_plan(4, 1, s)
+    """recurrentgemma at batch 4 has four (row, KV head) pairs of ten query
+    heads, served in two blocks of five: eight blocks before splitting, so
+    the cache takes the most splits one cluster holds (16) at 1032 slots,
+    with the 2048-slot ring full and past it, every slot in exactly one
+    split."""
+    for s, want in ((1032, (16, 65)), (2048, (16, 128)), (2100, (16, 132))):
+        n_split, chunk = tdecode.split_plan(4, 1, s, 10)
         assert (n_split, chunk) == want
         assert n_split * chunk >= s > (n_split - 1) * chunk
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as pallas_decode  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro_torch.configs import ARCH_IDS, NOT_YET_PORTED, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
@@ -51,6 +52,7 @@ def f32(x):
     (2, 4, 2, 128, 64),     # GQA
     (1, 4, 4, 256, 64),     # MHA, two KV blocks
     (1, 4, 1, 128, 128),    # MQA
+    (1, 4, 1, 128, 160),    # stablelm-12b's head dim
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -105,6 +107,7 @@ def test_flash_plain_reads_strided_views():
     (2, 4, 4, 256, 128, None, (200, 77)),        # MHA
     (2, 4, 1, 512, 64, 128, (512, 300)),         # MQA with a window
     (3, 4, 2, 256, 64, 64, (1, 63, 65)),         # window edge cases
+    (2, 8, 2, 256, 160, None, (256, 100)),       # stablelm-12b: G4 Dh160
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_pallas_and_ref(b, h, hkv, s, dh, window, lens,
@@ -170,7 +173,25 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_decode_split_plan_covers_the_cache():
-    for b, hkv, s in [(4, 4, 1032), (1, 1, 1), (8, 8, 64), (2, 2, 5000)]:
-        n_split, chunk = tdecode.split_plan(b, hkv, s)
-        assert n_split >= 1 and n_split * chunk >= s
+    for b, hkv, s, g in [(4, 4, 1032, 8), (1, 1, 1, 1), (8, 8, 64, 2),
+                         (2, 2, 5000, 16), (4, 8, 1032, 4), (1, 1, 9000, 10)]:
+        n_split, chunk = tdecode.split_plan(b, hkv, s, g)
+        assert 1 <= n_split <= tdecode.MAX_SPLIT  # one cluster at most
+        assert n_split * chunk >= s
         assert (n_split - 1) * chunk < s  # no split starts past the cache
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if a not in NOT_YET_PORTED])
+def test_attention_kernels_are_built_for_every_ported_arch(arch):
+    """The executor serves any ported arch, so each attention arch's head
+    dim and group must be ones the CUDA kernels are built for (the JAX
+    kernels take any head dim).  An arch without attention layers needs
+    neither."""
+    cfg = get_config(arch)
+    kinds = set(cfg.layer_types())
+    if not kinds & {"attn", "attn_mlp"}:
+        assert cfg.arch_type == "ssm"
+        return
+    assert cfg.head_dim in tflash.HEAD_DIMS
+    assert cfg.n_heads // cfg.n_kv_heads in tdecode.GROUPS[cfg.head_dim]
