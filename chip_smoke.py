@@ -11,20 +11,23 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    ``nvcc`` (sm_90a), in parallel, and ``ptxas``'s register / spill
    report of every kernel instantiation; then, from ``cuobjdump -sass``,
    the tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions of each
-   bf16 flash instantiation, which must have both;
+   bf16 flash instantiation, which must have both, and the tensor-core
+   (``HMMA``) instructions of the bf16 SSD kernel, which must have some;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the serving shapes, at the tolerances of the JAX package's
    ``tests/test_kernels.py`` (bf16 attention: relative to each output
    row's RMS, see ``TOL``): flash and decode attention at yi-9b's,
    recurrentgemma-2b's and stablelm-12b's (Dh 160) head shapes (bf16 and
    fp32, S 1000 and a ragged S), the SSD scan (bf16 and fp32 inputs, S
-   1000 and 512, with and without an initial state) and the RG-LRU scan;
+   1000, 512 and the chunk edges 1, 63, 64, 65, with and without an
+   initial state, B / C as slices of one projection) and the RG-LRU scan
+   (the same, and S 4096);
    then times on the card (CUDA events, inputs rotated past the 50 MB L2)
    of each kernel, its plain version and, for attention, one PyTorch call
    as a yardstick (SDPA, never used by the port), beside the least time
-   the card could take (bound), and for attention the time of the kernel
-   and of SDPA with the host out of the way (``device_ms``); and the decode
-   kernel's time by cache splits (the sweep behind ``split_plan``);
+   the card could take (bound), and the time of each kernel (and for
+   attention SDPA's) with the host out of the way (``device_ms``); and the
+   decode kernel's time by cache splits (the sweep behind ``split_plan``);
 4. model parity, fp32, one seed, the card (CUDA kernels) against the same
    weights on the CPU (plain versions), prefill logits and three decode
    steps, at full width: yi-9b, stablelm-12b and mamba2-780m (2 layers)
@@ -224,7 +227,7 @@ def phase_build():
             m = re.search(r"entry function '(\w+)'", line)
             if m:
                 # the mangled name, cut before its parameter list
-                entry = re.sub(r"EEvP.*$", "E", m.group(1))
+                entry = re.sub(r"(EEvP|EP).*$", "E", m.group(1))
                 entry = entry.replace("_ZN12_GLOBAL__N_1", "")
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
@@ -232,13 +235,28 @@ def phase_build():
 
 
 def sass_counts(build):
-    """HGMMA / UTMALDG per bf16 flash instantiation (cuobjdump -sass of the
-    built library); raises if one has no tensor-core instruction."""
+    """HGMMA / UTMALDG per bf16 flash instantiation and HMMA in the bf16 SSD
+    kernel (cuobjdump -sass of the built libraries); raises if one has no
+    tensor-core instruction."""
     exe = Path(build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(exe), "-sass",
-                           str(build.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
+
+    def sass_of(name):
+        return subprocess.run([str(exe), "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+
+    ssd = [b for b in sass_of("ssd_scan").split("Function : ")[1:]
+           if re.match(r"\S*ssd_bf16_kernel", b)]
+    if len(ssd) != 1:
+        raise AssertionError(f"found {len(ssd)} bf16 SSD kernels in the "
+                             "SASS, expected 1")
+    n_mma = ssd[0].count("HMMA") + ssd[0].count("HGMMA")
+    log(f"  ssd_scan bf16: {n_mma} HMMA / HGMMA in its SASS")
+    if not n_mma:
+        raise AssertionError("the bf16 SSD kernel has no tensor-core "
+                             "instruction")
+    sass = sass_of("flash_attention")
     found = 0
     for block in sass.split("Function : ")[1:]:
         m = re.match(r"\S*flash_bf16ILi(\d+)E", block)
@@ -342,7 +360,8 @@ def kernels_scans(gen, errs):
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).removeprefix("torch.")
         for s, with_h0 in [(1000, True), (1000, False), (512, False),
-                           (512, True)]:
+                           (512, True)] + [(s, h0) for s in (1, 63, 64, 65)
+                                           for h0 in (True, False)]:
             args = ssd_inputs(gen, 4, s, 48, 64, 128, dtype, with_h0)
             y, hf = ssd.ssd_scan_cuda(*args)
             y_ref, hf_ref = ssd.ssd_scan_torch(*args)
@@ -352,7 +371,8 @@ def kernels_scans(gen, errs):
                 errs["ssd_scan"], check_scaled(name + " y", y, y_ref,
                                                SSD_TOL),
                 check_scaled(name + " h_final", hf, hf_ref, SSD_TOL))
-        for s, with_h0 in [(1000, True), (1000, False)]:
+        for s, with_h0 in [(s, h0) for s in (1000, 1, 63, 64, 65, 4096)
+                           for h0 in (True, False)]:
             args = rglru_inputs(gen, 4, s, 2560, dtype, with_h0)
             h, hl = rg.rglru_scan_cuda(*args)
             h_ref, hl_ref = rg.rglru_scan_torch(*args)
@@ -454,14 +474,31 @@ def phase_kernels() -> dict:
     sets = copies(lambda: ssd_inputs(gen, b, s, h, p, n, dtype, True),
                   nbytes)
     ms = time_ms(ssd.ssd_scan_cuda, sets, 20)
+    dev_ms = device_ms(ssd.ssd_scan_cuda, sets, 20)
     plain_ms = time_ms(ssd.ssd_scan_torch, sets[:2], 3)
-    # the recurrence's operations: decay and update, then C^T h, per
-    # element of every (position, head) state, in fp32
-    bound = bound_ms(nbytes, 4 * b * s * h * n * p, torch.float32)
+    # the chunked form's products on the tensor cores (bf16 operands): the
+    # gram C B^T (2 L N per position, shared by the heads), and per head
+    # M' x (2 L P), C H and the state update (2 N P each); chunks of L = 64
+    tc_ops = 2 * b * s * (64 * n + h * (64 * p + 2 * n * p))
+    bound = bound_ms(nbytes, tc_ops, torch.bfloat16)
     records["ssd_scan", "mamba2-780m"] = record(
         "ssd_scan", "mamba2-780m",
         f"bf16 x/B/C, fp32 dt/h0 B{b} S{s} H{h} P{p} N{n}", errs["ssd_scan"],
         ms, plain_ms, bound, None)
+    records["ssd_scan", "mamba2-780m"]["device_ms"] = dev_ms
+    del sets
+    # the fp32 path (the parity kernel, CUDA cores) at the same shape: the
+    # recurrence's operations, decay and update, then C^T h, per element
+    # of every (position, head) state, in fp32
+    nbytes32 = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + h
+                    + 2 * b * h * n * p)
+    sets = copies(lambda: ssd_inputs(gen, b, s, h, p, n, torch.float32,
+                                     True), nbytes32)
+    fp32_ms = time_ms(ssd.ssd_scan_cuda, sets, 10)
+    fp32_bound = bound_ms(nbytes32, 4 * b * s * h * n * p, torch.float32)
+    log(f"  ssd_scan fp32 path (parity kernel) [fp32 x/B/C B{b} S{s} H{h} "
+        f"P{p} N{n}]: kernel {fp32_ms:.4f} ms, bound {fp32_bound[0]:.4f} "
+        f"ms ({fp32_bound[1]}, fp32 on the CUDA cores)")
     del sets
 
     # RG-LRU scan: recurrentgemma's prefill, fp32 a and b
@@ -470,19 +507,22 @@ def phase_kernels() -> dict:
     sets = copies(lambda: rglru_inputs(gen, b, s, w, torch.float32, True),
                   nbytes)
     ms = time_ms(rg.rglru_scan_cuda, sets, 50)
+    dev_ms = device_ms(rg.rglru_scan_cuda, sets, 50)
     plain_ms = time_ms(rg.rglru_scan_torch, sets[:2], 3)
     bound = bound_ms(nbytes, 2 * b * s * w, torch.float32)
     records["rglru_scan", "recurrentgemma-2b"] = record(
         "rglru_scan", "recurrentgemma-2b", f"fp32 B{b} S{s} W{w}",
         errs["rglru_scan"], ms, plain_ms, bound, None)
+    records["rglru_scan", "recurrentgemma-2b"]["device_ms"] = dev_ms
     del sets
 
     for r in records.values():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         if "device_ms" in r:
-            lib += (f"; queued on the card: kernel {r['device_ms']:.4f} ms, "
-                    f"library {r['library_device_ms']:.4f} ms")
+            lib += f"; queued on the card: kernel {r['device_ms']:.4f} ms"
+        if "library_device_ms" in r:
+            lib += f", library {r['library_device_ms']:.4f} ms"
         log(f"  {r['name']} ({r['path']}) [{r['shape']}]: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib},"
             f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

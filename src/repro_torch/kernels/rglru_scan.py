@@ -10,13 +10,46 @@ an initial state ``h0`` and returns the last one (as the JAX
 
 What bounds it on the H100: bytes.  At the serving shape (B 4, S 1000,
 W 2560, fp32) it reads a and b once and writes h once, 123 MB, 0.037 ms at
-3.35 TB/s; the operations (one FMA per element) are negligible.  Design:
-one thread per (batch row, lane) walks t with h in a register; neighbouring
-threads take neighbouring lanes, so every load and store of a warp is one
-coalesced 128-byte line.  The S steps depend on each other, so the kernel
-is bound by memory latency unless many loads are in flight: each thread
-issues the loads of 16 steps before it runs them, and blocks of 64 threads
-(160 blocks at the serving shape) spread the warps over all 132 SMs.
+3.35 TB/s; the operations (one FMA per element) are negligible.
+
+Design: a chunk-parallel scan in one pass.  The recurrence is linear, so
+a chunk of T = 32 steps acts on the state as h -> A h + E, with A the
+product of its a_t and E its last state from zero.  One block of 128
+threads per (batch row, chunk, 256 lanes), each thread 2 neighbouring
+lanes, 2,560 blocks at the serving shape:
+
+1. the block takes its (chunk, row, tile) from an atomic counter,
+   chunk-major, loads its chunk's a and b into registers (64 loads a thread
+   in flight) and publishes (A, E) to an fp32 scratch;
+2. it looks back (a decoupled look-back): one warp reads the status of the
+   32 chunks before it at once, takes the nearest one that has published
+   its end state (or h0 before chunk 0) and folds that state and the
+   aggregates between into its carry, publishes its own end state, then
+   re-runs its steps from the carry and writes every h_t; the last chunk
+   writes h_last.
+
+Why it is safe: the counter hands out every item of chunk c - 1 before any
+item of chunk c, and only to a block that is running, so a block waits
+only on blocks that are resident or done, in whatever order the card
+starts them; values are published before their status, with a fence
+between, and read through the L2 after the status, with a fence between;
+a wait that spins 2^22 polls traps (a launch error) instead of hanging.
+The card tests cover S from 1 to 4096 (128 chunks, so look-backs past a
+32-chunk window), both dtypes, h0, strided and odd-width inputs.
+
+The first kernel walked all S dependent steps in one thread per lane (320
+warps at the serving shape), so the card waited on memory latency (2.6x
+the bound); here the chunks run at once and a and b are read once, so the
+pass moves the function's own bytes.  A two-pass form (chunk aggregates,
+then carry fold and re-scan) was tried on the way: it reads a and b twice
+and was slower on the card (``PERF.md`` §6).  The scratch, allocated here
+with ``torch.empty``, is 3 floats a lane a chunk (3.9 MB at the serving
+shape) and one int32 status a (row, chunk, tile), which the launch zeroes
+(``cudaMemsetAsync``) before the kernel.  The carry changes the order of the fp32 operations (A
+carry + E instead of one step after another), which stays within the 1e-5
+check.
+
+``launches`` counts calls of the entry, one a call.
 """
 from __future__ import annotations
 
@@ -30,8 +63,18 @@ launches = 0  # launches of the CUDA kernel (plain-version calls not counted)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 +
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 +
              [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+CHUNK = 32     # steps per chunk (csrc/rglru_scan.cu: T)
+THREADS = 128  # threads per block, each 1 or 2 lanes
+
+
+def scratch_sizes(bsz: int, s: int, w: int) -> tuple[int, int]:
+    """(int32 status entries, fp32 values) the kernel needs: one status a
+    (row, chunk, tile), tiles of one lane a thread at most, and a counter;
+    A, E and the end state a lane a chunk."""
+    n_chunks = -(-s // CHUNK)
+    return bsz * n_chunks * -(-w // THREADS) + 1, 3 * bsz * n_chunks * w
 
 
 def rglru_scan_torch(a, b, h0=None):
@@ -77,21 +120,30 @@ def _check(a, b, h0):
 
 
 def rglru_scan_cuda(a, b, h0=None):
-    """Launch the kernel.  Same contract as ``rglru_scan_torch``."""
+    """Launch the kernel.  Same contract as ``rglru_scan_torch``.
+
+    The kernel takes about 50 us at the serving shape, so the host's work
+    a call is kept small: three allocations (the outputs and one scratch
+    holding the fp32 values, then the int32 statuses) and the raw stream
+    handle."""
     global launches
     _check(a, b, h0)
+    if a.device.index != torch.cuda.current_device():
+        with torch.cuda.device(a.device):
+            return rglru_scan_cuda(a, b, h0)
     lib = _build.library("rglru_scan", _ARGTYPES)
     bsz, s, w = a.shape
-    with torch.cuda.device(a.device):
-        h_seq = torch.empty((bsz, s, w), dtype=torch.float32,
-                            device=a.device)
-        h_last = torch.empty((bsz, w), dtype=torch.float32, device=a.device)
-        err = lib.rglru_scan_launch(
-            a.data_ptr(), b.data_ptr(),
-            None if h0 is None else h0.data_ptr(), h_seq.data_ptr(),
-            h_last.data_ptr(), _DTYPES[a.dtype], bsz, s, w,
-            *a.stride()[:2], *b.stride()[:2],
-            torch.cuda.current_stream().cuda_stream)
+    n_status, n_values = scratch_sizes(bsz, s, w)
+    h_seq = torch.empty((bsz, s, w), dtype=torch.float32, device=a.device)
+    h_last = torch.empty((bsz, w), dtype=torch.float32, device=a.device)
+    scratch = torch.empty(n_values + n_status, dtype=torch.float32,
+                          device=a.device)
+    values = scratch.data_ptr()
+    err = lib.rglru_scan_launch(
+        a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+        h_seq.data_ptr(), h_last.data_ptr(), values + 4 * n_values, values,
+        _DTYPES[a.dtype], bsz, s, w, *a.stride()[:2], *b.stride()[:2],
+        _build.current_stream(a.device.index))
     _build.check(lib, err, "rglru_scan")
     launches += 1
     return h_seq, h_last

@@ -16,18 +16,43 @@ so a prefill hands its state to decode; and any S works (positions past S
 count as dt = 0, which leaves the state unchanged, as the JAX padding
 does).
 
-What bounds it on the H100: at the serving shape (B 4, S 1000, H 48, P 64,
-N 128) the function moves about 83 MB (y and the final state in fp32 are
-most of it) but needs 4 N P operations per (position, head) in fp32: 6.3
-GFLOP, so the operations bound it (0.094 ms at 67 TFLOP/s against 0.025 ms
-for the bytes).  Design: one block of 256 threads per (head, batch row)
-loops over chunks of 64 positions (the loop replaces the TPU's sequential
-chunk axis: CUDA blocks run in no order).  The (N, P) fp32 state stays in
-shared memory for the whole sequence; each chunk's B, C and x * dt are
-staged in shared memory once and every product inside the chunk reads
-them from there.  This first kernel multiplies on the CUDA cores in fp32
-and recomputes the gram C B^T for every head (it is shared across heads);
-tensor cores and sharing the gram are later work.
+What bounds it on the H100, at the serving shape (B 4, S 1000, H 48, P 64,
+N 128, bf16 x / B / C): bytes.  The function moves about 89 MB (the fp32 y
+and the fp32 states in and out are most of it), 0.027 ms at 3.35 TB/s; its
+chunked products are about 8 GFLOP on the tensor cores (0.008 ms at 989
+TFLOP/s).  Run in fp32 on the CUDA cores, as the first kernel did, the
+same recurrence needs 6.3 GFLOP of fp32 and the operations bound it
+(0.094 ms at 67 TFLOP/s).
+
+The route is chosen by dtype (not a fallback: both are kernels):
+
+* bf16 x / B / C (the model's serving path): ``ssd_bf16_kernel``, on the
+  tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 accumulate).  The
+  JAX kernel computes in fp32 and the check on the card stays at 1e-4 of
+  the output's scale, which one bf16 rounding (2^-9) of an fp32 operand
+  would fail.  But in every product of a chunk one operand is exactly
+  bf16 (C, B or x as the model hands them): the fp32 factors (the decay
+  mask, dt, the state) fold into the other operand u, which is split into
+  hi = bf16(u) and lo = bf16(u - hi) and multiplied twice, hi v + lo v,
+  about 2^-17 relative per element.  Per chunk of 64: the gram C B^T (one
+  pass), M' x with M' = [j <= i] exp(cum_i - cum_j) (C B^T)_ij dt_j (two),
+  C H for the carried state (two), and the update
+  H <- exp(cum_L) H + (B o w dt)^T x (two).  One block of 4 warps owns a
+  (batch row, head, 32 of the 64 columns of P): a column of y and of the
+  state reads only that column of x, so the 384 blocks of the serving
+  shape fill the card in one wave, three to an SM (75,264 bytes of shared
+  memory each).  The fp32 state stays in the warps' accumulator registers
+  from h0 to h_final and is never rounded; only its hi / lo copy for C H
+  goes to shared memory.  B, C and x are staged as bf16 with ``cp.async``,
+  the next chunk's loads overlapping this chunk's products.  It needs no
+  scratch.
+* fp32 x / B / C (the parity path): ``ssd_kernel``, the first kernel,
+  unchanged: one block of 256 threads per (head, batch row), the fp32
+  state in shared memory, every product on the CUDA cores in fp32.
+
+Both loop over chunks of 64 positions inside a block (the loop replaces
+the TPU's sequential chunk axis: CUDA blocks run in no order) and
+recompute the gram C B^T for every head (it is shared across heads).
 """
 from __future__ import annotations
 
@@ -38,7 +63,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-launches = 0  # launches of the CUDA kernel (plain-version calls not counted)
+launches = 0  # kernel launches, one a call (plain-version calls not counted)
 
 NEG_INF = -1e30
 CHUNK = 64            # the plain version's chunk (the kernel has its own)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -31,6 +32,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import _build
 from repro_torch.serving.executor import _sync, build_model
+
+# The hand-written kernels live in anonymous namespaces (ssd_bf16_kernel in
+# a namespace inside one) and are named after their sources: flash_bf16 /
+# flash_fp32, decode_kernel, ssd_bf16_kernel / ssd_kernel,
+# rglru_lookback_kernel.
+_PORT_KERNEL = re.compile(
+    r"\(anonymous namespace\)::(?:\w+::)*(?:%s)_"
+    % "|".join(src.split("_")[0] for src in _build.SOURCES))
 
 
 def _busy_us(intervals) -> float:
@@ -58,12 +67,8 @@ def window_report(name: str, prof, wall_s: float, steps: int,
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    # the hand-written kernels live in anonymous namespaces and are named
-    # after their sources (flash_bf16 / flash_fp32, decode_kernel,
-    # ssd_kernel, rglru_kernel)
     ours = sorted((n, c, ms) for n, (c, ms) in by_name.items()
-                  if any(f"(anonymous namespace)::{src.split('_')[0]}_" in n
-                         for src in _build.SOURCES))
+                  if _PORT_KERNEL.search(n))
     out.update({
         "device_busy_ms_per_step": busy / steps,
         "device_idle_share": 1.0 - busy / (wall_s * 1e3),

@@ -12,8 +12,9 @@ fp32 kernels 1e-4 / 1e-5, bf16 3e-2 / 3e-2 (attention: on outputs divided
 by each row's RMS over Dh, as ``chip_smoke.py`` checks them), the SSD scan
 1e-4 on outputs divided by max |reference|, the RG-LRU scan 1e-5.  Shapes
 are small in batch and length and real in head dim and group (every head
-dim and group the attention kernels are built for); ``chip_smoke.py``
-checks the serving shapes.
+dim and group the attention kernels are built for), and the scans run at
+the edges of their chunks (64 positions for SSD, 32 steps for RG-LRU);
+``chip_smoke.py`` checks the serving shapes.
 """
 import numpy as np
 import pytest
@@ -45,40 +46,99 @@ def on(device, rng, *shape, scale=1.0):
                             * scale).to(device)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_matches_plain_version(cuda, dtype):
-    """mamba2's head shape (P 64, N 128), a ragged S, an initial state,
-    and B / C as slices of one projection."""
-    rng = np.random.default_rng(0)
-    b, s, h, p, n = 2, 130, 4, 64, 128
-    xh = on(cuda, rng, b, s, h, p).to(dtype)
-    dt = torch.nn.functional.softplus(on(cuda, rng, b, s, h))
-    a = -torch.exp(on(cuda, rng, h))
-    bc = on(cuda, rng, b, s, 2 * n, scale=0.3).to(dtype)
-    h0 = on(cuda, rng, b, h, n, p)
-    args = (xh, dt, a, bc[..., :n], bc[..., n:], h0)
+def ssd_args(device, rng, b, s, h, dtype, with_h0, bc_width=2 * 128,
+             bc_offset=0):
+    """mamba2's head shape (P 64, N 128), B / C as slices of one
+    projection of width ``bc_width`` starting at ``bc_offset``."""
+    p, n = 64, 128
+    xh = on(device, rng, b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(on(device, rng, b, s, h))
+    a = -torch.exp(on(device, rng, h))
+    bc = on(device, rng, b, s, bc_width, scale=0.3).to(dtype)
+    h0 = on(device, rng, b, h, n, p) if with_h0 else None
+    return (xh, dt, a, bc[..., bc_offset:bc_offset + n],
+            bc[..., bc_offset + n:bc_offset + 2 * n], h0)
+
+
+def check_ssd(args):
+    """One call is one launch; y and h_final within 1e-4 of max |ref|."""
     before = tssd.launches
     got = tssd.ssd_scan_cuda(*args)
     want = tssd.ssd_scan_torch(*args)
     torch.cuda.synchronize()
     assert tssd.launches == before + 1
     for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
         scale = float(w.abs().max()) + 1e-9
         torch.testing.assert_close(g / scale, w / scale, rtol=SSD_TOL,
                                    atol=SSD_TOL)
 
 
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("with_h0", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rglru_kernel_matches_plain_version(cuda, dtype):
-    rng = np.random.default_rng(1)
-    a = (torch.sigmoid(on(cuda, rng, 2, 300, 2560)) * 0.2 + 0.8).to(dtype)
-    bb = on(cuda, rng, 2, 300, 2560, scale=0.1).to(dtype)
-    h0 = on(cuda, rng, 2, 2560)
+def test_ssd_kernel_matches_plain_version(cuda, dtype, with_h0, s):
+    """mamba2's head shape (P 64, N 128), S of one position, one chunk less
+    one, one chunk, one chunk and one, and two chunks and two; with and
+    without an initial state; B / C as slices of one projection."""
+    rng = np.random.default_rng(s)
+    check_ssd(ssd_args(cuda, rng, 2, s, 4, dtype, with_h0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_with_unaligned_b_c(cuda, dtype):
+    """B / C at an odd offset in a projection of odd width: no 16-byte
+    copies, the bf16 kernel stages them element by element."""
+    rng = np.random.default_rng(7)
+    check_ssd(ssd_args(cuda, rng, 2, 130, 4, dtype, True,
+                       bc_width=2 * 128 + 3, bc_offset=3))
+
+
+def check_rglru(a, bb, h0):
+    before = trglru.launches
     got = trglru.rglru_scan_cuda(a, bb, h0)
     want = trglru.rglru_scan_torch(a, bb, h0)
     torch.cuda.synchronize()
+    assert trglru.launches == before + 1  # one a call, both passes
     for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
         torch.testing.assert_close(g, w, **SCAN)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 130, 300, 4096])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_matches_plain_version(cuda, dtype, with_h0, s):
+    """recurrentgemma's width; S inside one chunk, at its edges, across
+    several, and 4096 (chunks of 128); a and b as slices of one tensor."""
+    rng = np.random.default_rng(s + 1)
+    ab = on(cuda, rng, 2, s, 2, 2560)
+    ab[:, :, 0] = torch.sigmoid(ab[:, :, 0]) * 0.2 + 0.8
+    ab[:, :, 1] *= 0.1
+    ab = ab.to(dtype)
+    a, bb = ab[:, :, 0], ab[:, :, 1]
+    h0 = on(cuda, rng, 2, 2560) if with_h0 else None
+    check_rglru(a, bb, h0)
+
+
+@pytest.mark.parametrize("a_range", [(0.999, 1.0), (0.0, 0.01)])
+def test_rglru_kernel_with_a_near_one_and_near_zero(cuda, a_range):
+    """Long memory (the carry is nearly the whole state) and none (the
+    carry vanishes): 1000 steps over 16 chunks."""
+    rng = np.random.default_rng(5)
+    lo, hi = a_range
+    a = torch.from_numpy(rng.uniform(lo, hi, (2, 1000, 2560))
+                         .astype(np.float32)).to(cuda)
+    bb = on(cuda, rng, 2, 1000, 2560, scale=0.1)
+    check_rglru(a, bb, on(cuda, rng, 2, 2560))
+
+
+def test_rglru_kernel_with_odd_width(cuda):
+    """W 2561: no 4-lane loads, each thread takes one lane."""
+    rng = np.random.default_rng(6)
+    a = torch.sigmoid(on(cuda, rng, 2, 300, 2561)) * 0.2 + 0.8
+    check_rglru(a, on(cuda, rng, 2, 300, 2561, scale=0.1),
+                on(cuda, rng, 2, 2561))
 
 
 @pytest.mark.parametrize("window", [2048, 128])

@@ -103,6 +103,92 @@ def test_rglru_plain_matches_pallas_and_ref(b, s, w, blk):
     np.testing.assert_allclose(np32(h_last), np32(want_last), **SCAN)
 
 
+def rglru_chunk_emulation(a, b, h0, rng, t=trglru.CHUNK):
+    """The arithmetic of the kernel (``csrc/rglru_scan.cu``) on the CPU,
+    chunks of ``t`` steps: each chunk's aggregate from zero, (prod a,
+    h_end); its carry folded from the end state of an earlier chunk j (-1:
+    h0) and the aggregates between, as its look-back finds them (j drawn
+    from ``rng``: any j gives the same carry up to rounding); then its
+    steps re-run from the carry, and its end state published."""
+    bsz, s, w = a.shape
+    n_chunks = -(-s // t)
+    aggs, ends = [], []
+    out = torch.empty(bsz, s, w)
+    for c in range(n_chunks):
+        steps = range(c * t, min(s, (c + 1) * t))
+        prod, end = torch.ones(bsz, w), torch.zeros(bsz, w)
+        for u in steps:
+            prod, end = prod * a[:, u], a[:, u] * end + b[:, u]
+        aggs.append((prod, end))
+        j = int(rng.integers(-1, c)) if c else -1
+        h = (ends[j] if j >= 0 else torch.zeros(bsz, w) if h0 is None
+             else h0.clone())
+        for p_, e_ in aggs[j + 1:c]:
+            h = p_ * h + e_
+        ends.append(prod * h + end)
+        for u in steps:
+            h = a[:, u] * h + b[:, u]
+            out[:, u] = h
+    return out, h
+
+
+def chunk_case(s, a_range):
+    rng = np.random.default_rng(s)
+    a = torch.from_numpy(rng.uniform(*a_range, (2, s, 64))
+                         .astype(np.float32))
+    bb = torch.from_numpy(rng.standard_normal((2, s, 64), np.float32)
+                          * 0.1)
+    h0 = torch.from_numpy(rng.standard_normal((2, 64), np.float32))
+    return rng, a, bb, h0
+
+
+@pytest.mark.parametrize("a_range", [(0.8, 1.0), (0.999, 1.0), (0.0, 0.01)])
+@pytest.mark.parametrize("s", [130, 300, 1000])
+def test_rglru_chunk_algebra_matches_plain_version(s, a_range):
+    """Aggregates, carry fold and re-scan at the kernel's chunk length, S a
+    multiple of no chunk, an initial state, a in the serving range, near 1
+    (the carry is nearly the whole state) and near 0 (the carry vanishes):
+    within the scan tolerance of the sequential recurrence."""
+    rng, a, bb, h0 = chunk_case(s, a_range)
+    assert s % trglru.CHUNK
+    got = rglru_chunk_emulation(a, bb, h0, rng)
+    want = trglru.rglru_scan_torch(a, bb, h0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np32(g), np32(w), **SCAN)
+
+
+def test_rglru_chunk_algebra_over_long_memory_is_as_exact_as_plain():
+    """2500 steps with a near 1: the fp32 rounding of any order of the
+    recurrence drifts like a random walk.  Held against the recurrence in
+    float64, the chunk algebra (79 chunks) stays within the scan tolerance
+    and no further off than the plain version's own step-by-step fp32."""
+    rng, a, bb, h0 = chunk_case(2500, (0.999, 1.0))
+    h = h0.double()
+    exact = torch.empty(a.shape, dtype=torch.float64)
+    for t in range(a.shape[1]):
+        h = a[:, t].double() * h + bb[:, t].double()
+        exact[:, t] = h
+    got, _ = rglru_chunk_emulation(a, bb, h0, rng)
+    plain, _ = trglru.rglru_scan_torch(a, bb, h0)
+    np.testing.assert_allclose(np32(got), np32(exact), **SCAN)
+    assert float((got.double() - exact).abs().max()) <= float(
+        (plain.double() - exact).abs().max())
+
+
+@pytest.mark.parametrize("s,w", [(1, 2560), (1000, 2560), (4096, 2561),
+                                 (33, 7)])
+def test_rglru_scratch_covers_both_lane_widths(s, w):
+    """The wrapper's scratch holds a status for every (row, chunk, tile)
+    whether a thread takes two lanes or one, the counter, and three floats
+    a lane a chunk."""
+    n_status, n_values = trglru.scratch_sizes(4, s, w)
+    n_chunks = -(-s // trglru.CHUNK)
+    for lanes in (1, 2):
+        tiles = -(-w // (trglru.THREADS * lanes))
+        assert n_status >= 4 * n_chunks * tiles + 1
+    assert n_values == 3 * 4 * n_chunks * w
+
+
 def test_ops_routes_rglru_scan_by_device():
     a, bb, h0 = (torch.from_numpy(x) for x in scan_inputs(1, 2, 9, 16))
     before = trglru.launches

@@ -128,6 +128,89 @@ def test_ops_routes_ssd_scan_by_device():
         tssd.ssd_scan_cuda(*args)
 
 
+def split_bf16(u):
+    """u -> (hi, lo), both bf16 values held in fp32: hi = bf16(u) and
+    lo = bf16(u - hi), so u = hi + lo to about 2^-17 of |u|."""
+    hi = u.to(torch.bfloat16).float()
+    return hi, (u - hi).to(torch.bfloat16).float()
+
+
+def round_once(u):
+    """The negative control: u rounded once to bf16 (and no lo part)."""
+    return u.to(torch.bfloat16).float(), torch.zeros_like(u)
+
+
+def ssd_split_emulation(xh, dt, a, bmat, cmat, h0, split=split_bf16):
+    """The arithmetic of the bf16 kernel (``csrc/ssd_scan.cu``,
+    ``ssd_bf16_kernel``) on the CPU: chunks of 64; in every product one
+    operand is exactly bf16 (C, B or x) and the other, fp32, enters as
+    ``split(u)`` = (hi, lo), multiplied twice with fp32 sums:
+
+        G = C B^T; M' = [j <= i] exp(cum_i - cum_j) G dt_j
+        y = M' x + diag(exp cum) C H               (M', H split)
+        H <- exp(cum_L) H + (B o w dt)^T x         (the scaled B^T split)
+    """
+    b, s, h, p = xh.shape
+    n, ln = bmat.shape[-1], 64
+    pad = -s % ln
+    x = torch.nn.functional.pad(xh.float(), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    bf = torch.nn.functional.pad(bmat.float(), (0, 0, 0, pad))
+    cf = torch.nn.functional.pad(cmat.float(), (0, 0, 0, pad))
+    lower = torch.ones(ln, ln, dtype=torch.bool).tril()[None, :, :, None]
+    state = torch.zeros(b, h, n, p) if h0 is None else h0.float()
+    ys = []
+    for c in range(x.shape[1] // ln):
+        sl = slice(c * ln, (c + 1) * ln)
+        xt = x[:, sl].permute(0, 2, 1, 3)                  # (B, H, L, P)
+        dtc, bc, cc = dtf[:, sl], bf[:, sl], cf[:, sl]
+        cum = torch.cumsum(dtc * a.float(), dim=1)         # (B, L, H)
+        gram = cc @ bc.transpose(1, 2)                     # (B, L, L)
+        dec = (cum[:, :, None] - cum[:, None]).masked_fill(~lower, -1e30)
+        m = (dec.exp() * (gram[..., None] * dtc[:, None])).permute(0, 3, 1, 2)
+        mhi, mlo = split(m)                                # (B, H, L, L)
+        hhi, hlo = split(state)                            # (B, H, N, P)
+        y = (cum.permute(0, 2, 1).exp()[..., None]
+             * (cc[:, None] @ hhi + cc[:, None] @ hlo)) + mhi @ xt + mlo @ xt
+        tot = cum[:, -1]                                   # (B, H)
+        w = ((tot[:, None] - cum).exp() * dtc).permute(0, 2, 1)  # (B, H, L)
+        ahi, alo = split(bc.transpose(1, 2)[:, None] * w[:, :, None])
+        state = tot.exp()[..., None, None] * state + ahi @ xt + alo @ xt
+        ys.append(y.permute(0, 2, 1, 3))
+    return torch.cat(ys, dim=1)[:, :s], state
+
+
+def mamba2_bf16_args(s):
+    """mamba2's head shape (P 64, N 128), three heads, an initial state;
+    x, B and C rounded to bf16 as the model hands them over."""
+    xh, dt, a, bm, cm, h0 = scan_inputs(s, 2, s, 3, 64, 128, with_h0=True)
+    return (torch.from_numpy(xh).bfloat16(), torch.from_numpy(dt),
+            torch.from_numpy(a), torch.from_numpy(bm).bfloat16(),
+            torch.from_numpy(cm).bfloat16(), torch.from_numpy(h0))
+
+
+@pytest.mark.parametrize("s", [63, 130])
+def test_ssd_split_products_hold_the_scan_tolerance(s):
+    """The bf16 kernel's hi / lo products stay within the scan tolerance
+    (1e-4 of max |reference|) of the fp32 plain version."""
+    args = mamba2_bf16_args(s)
+    got = ssd_split_emulation(*args)
+    want = tssd.ssd_scan_torch(*args)
+    for g, w in zip(got, want):
+        assert_scaled(g, w)
+
+
+def test_ssd_single_bf16_rounding_misses_the_scan_tolerance():
+    """Negative control: the same products with the fp32 operand rounded
+    once to bf16 fail the check the split products pass."""
+    args = mamba2_bf16_args(130)
+    got = ssd_split_emulation(*args, split=round_once)
+    want = tssd.ssd_scan_torch(*args)
+    with pytest.raises(AssertionError):
+        for g, w in zip(got, want):
+            assert_scaled(g, w)
+
+
 def jax_and_port(arch, key, dtype=jnp.float32):
     jcfg = jax_smoke(arch)
     jm = JaxModel(jcfg, dtype=dtype)
