@@ -30,19 +30,40 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    decode kernel's time by cache splits (the sweep behind ``split_plan``);
 4. model parity, fp32, one seed, the card (CUDA kernels) against the same
    weights on the CPU (plain versions), prefill logits and three decode
-   steps, at full width: yi-9b, stablelm-12b and mamba2-780m (2 layers)
-   and recurrentgemma-2b (3 layers, one (rglru, rglru, attn) unit; also
-   one 2100-token prompt, so that the 2048-slot local ring wraps);
+   steps, at full width: yi-9b, stablelm-12b, chatglm3-6b and
+   mamba2-780m (2 layers) and recurrentgemma-2b (3 layers, one (rglru,
+   rglru, attn) unit; also one 2100-token prompt, so that the 2048-slot
+   local ring wraps);
 5. serve: ``repro_torch.serving.executor`` on yi-9b, mamba2-780m,
-   recurrentgemma-2b and stablelm-12b at full width (all layers, bf16): 8
-   requests, batch 4, prompts of 512 and 1000 tokens, 32 output tokens
-   each; every request answered with in-vocab tokens, all logits finite,
-   and each kernel's launch count (set to 0 before each model's serve,
-   read after it) exactly one per layer of its kind per prefill batch
-   (flash, SSD scan, RG-LRU scan) or per decode step (decode attention).
+   recurrentgemma-2b, stablelm-12b and chatglm3-6b at full width (all
+   layers, bf16): 8 requests, batch 4, prompts of 512 and 1000 tokens, 32
+   output tokens each; every request answered with in-vocab tokens, all
+   logits finite, and each kernel's launch count (set to 0 before each
+   model's serve, read after it) exactly one per layer of its kind per
+   prefill batch (flash, SSD scan, RG-LRU scan) or per decode step (decode
+   attention);
+6. partitions (``repro_torch.launch``): each of the paper's splits of the
+   card's SMs (green contexts) with its granted SMs, proven disjoint by the
+   ``%smid`` probe; the four kernels at their serving shapes on the
+   smallest partition (24 SMs), each launched on the whole card first,
+   against their plain versions, with their time there; the L(b, p) grid
+   (``launch/profile_partitions.py``: yi-9b, chatglm3-6b, mamba2-780m,
+   recurrentgemma-2b, full width, bf16, a decode step at 1024 cached
+   positions captured as a CUDA graph and replayed on each of the six
+   partition sizes at batches 1-32), written to
+   ``results/out/h100_lbp.jsonl`` and printed as a table, with the decode
+   kernel's launch count (set to 0 before the grid, read after it) exactly
+   one per attention layer per eager or captured step; the co-run factors
+   (mamba2-780m at batch 32 beside yi-9b at batch 8 on the 50/50 and 20/80
+   splits); and, from the grid just measured, Elastic Partitioning's and
+   SBP's largest schedulable multiple of the serving mix on 4 cards, and a
+   replay of the placement through the event engine that must conserve
+   every request.
 
 The line before the last is the kernels' JSON record (one entry per kernel
-and served model); the last line is ``{"ok": true, "device": {...}}``.
+and served model, and one for the grid's decode launches; ``partition_ms``
+is a kernel's time on the smallest partition); the last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits nonzero and prints no result.
 """
@@ -71,10 +92,21 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_BYTES = 50 * 2**20
 PARITY_REL = 1e-3  # model parity: max |card - cpu| <= 1e-3 * max |cpu|
-SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b", "stablelm-12b")
+SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b", "stablelm-12b",
+          "chatglm3-6b")
 # the attention head shapes served: (H, Hkv, Dh, window)
 HEADS = {"yi-9b": (32, 4, 128, None), "recurrentgemma-2b": (10, 1, 256, 2048),
-         "stablelm-12b": (32, 8, 160, None)}
+         "stablelm-12b": (32, 8, 160, None),
+         "chatglm3-6b": (32, 2, 128, None)}
+# the JAX package's serving mix (benchmarks/tpulet_serving.py, MIX) less the
+# MoE model, which is not ported: arch -> rate weight
+MIX = {"yi-9b": 1.0, "chatglm3-6b": 1.0, "mamba2-780m": 4.0,
+       "recurrentgemma-2b": 2.0}
+SPLITS = (20, 40, 50, 60, 80)  # left sides of the paper's splits
+# co-run pairs: (left %, model and batch on the left, on the right)
+CORUN = ((50, ("mamba2-780m", 32), ("yi-9b", 8)),
+         (20, ("mamba2-780m", 32), ("yi-9b", 8)))
+LBP_OUT = Path(__file__).resolve().parent / "results/out/h100_lbp.jsonl"
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
@@ -108,9 +140,10 @@ def check_scaled(name, got, want, tol) -> float:
     return _check(name, got, want, tol, tol, scale)
 
 
-def _check(name, got, want, rtol, atol, scale) -> float:
+def _check(name, got, want, rtol, atol, scale, quiet=False) -> float:
     """|got - want| / scale <= atol + rtol |want| / scale elementwise;
-    ``scale`` is a number or a tensor that broadcasts against ``want``."""
+    ``scale`` is a number or a tensor that broadcasts against ``want``.
+    ``quiet``: log nothing unless it fails."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     bad = err > atol * scale + rtol * want.abs()
@@ -121,9 +154,11 @@ def _check(name, got, want, rtol, atol, scale) -> float:
                f"{float((err / scale).max()):.3e}")
     else:
         how = "" if scale == 1.0 else f", scale {scale:.3g}"
-    log(f"  {name}: max_abs_err {max_err:.3e} (rtol {rtol}, atol {atol}"
-        f"{how})")
-    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+    failed = bool(bad.any()) or not bool(torch.isfinite(got).all())
+    if failed or not quiet:
+        log(f"  {name}: max_abs_err {max_err:.3e} (rtol {rtol}, atol "
+            f"{atol}{how})")
+    if failed:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {max_err:.3e})")
     return max_err
@@ -298,6 +333,7 @@ def kernels_attention(gen, errs):
         tag = str(dtype).removeprefix("torch.")
         for b, h, hkv, s, dh, window in [(4, 32, 4, 512, 128, None),
                                          (4, 32, 4, 1000, 128, None),
+                                         (4, 32, 2, 1000, 128, None),
                                          (4, 32, 4, 512, 128, 128),
                                          (4, 16, 4, 1000, 64, None),
                                          (4, 10, 1, 1000, 256, 2048),
@@ -320,7 +356,8 @@ def kernels_attention(gen, errs):
                 (4, 10, 1, 2048, 256, 2048, [2048] * 4),
                 (4, 10, 1, 1032, 256, 2048, [1032, 544, 1, 1000]),
                 (4, 32, 8, 1032, 160, None, [1, 516, 1032, 1001]),
-                (2, 32, 8, 77, 160, None, [77, 40])]:
+                (2, 32, 8, 77, 160, None, [77, 40]),
+                (4, 32, 2, 1032, 128, None, [1032, 1, 700, 1025])]:
             q, kc, vc, lengths = decode_inputs(b, h, hkv, s, dh, lens, dtype)
             got = dec.decode_attention_cuda(q, kc, vc, lengths, window=window)
             want = dec.decode_attention_torch(q, kc, vc, lengths,
@@ -631,6 +668,7 @@ def phase_parity():
     log("[4] model parity: full width, fp32, card vs CPU")
     parity("yi-9b", 2, [(2, 77)])
     parity("stablelm-12b", 2, [(2, 77)])
+    parity("chatglm3-6b", 2, [(2, 77)])
     parity("mamba2-780m", 2, [(2, 77)])
     parity("recurrentgemma-2b", 3, [(2, 77), (1, 2100)])
 
@@ -686,6 +724,283 @@ def phase_serve(records: dict):
         raise AssertionError(f"no served path launched {missing}")
 
 
+# ------------------------------------------------------- partitions ----
+
+
+def splits_disjoint(part_mod, total: int):
+    """Each split of the card: two partitions whose probe SM sets are
+    disjoint, each of the count the CUDA driver granted, together the card."""
+    for left in SPLITS:
+        a, b = part_mod.split(left)
+        ia, ib = part_mod.sm_ids(a), part_mod.sm_ids(b)
+        log(f"  split {left}/{100 - left}: {a.sms} + {b.sms} SMs granted, "
+            f"probe saw {len(ia)} + {len(ib)}, shared {len(ia & ib)}")
+        if ia & ib or (len(ia), len(ib)) != (a.sms, b.sms) or \
+                a.sms + b.sms != total:
+            raise AssertionError(f"split {left}: SM sets not disjoint or "
+                                 "not the granted counts")
+
+
+def kernels_on_partition(part, records: dict, errs: dict):
+    """Each kernel at its serving shapes, launched first on the whole card
+    and then on ``part``, against its plain version; its time on ``part``
+    goes into its records as ``partition_ms``."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dtype = torch.bfloat16
+    tag = f"on {part.sms} SMs"
+
+    def both(kernel, *args, **kw):
+        kernel(*args, **kw)  # the whole card first
+        torch.cuda.synchronize()
+        with part:
+            out = kernel(*args, **kw)
+            part.synchronize()
+        return out
+
+    def time_on_part(fn, sets, iters):
+        with part:
+            return time_ms(fn, sets, iters)
+
+    for path, (h, hkv, dh, window) in HEADS.items():
+        b, s = 4, 1000
+        q, k, v = (_randn(gen, b, s, n, dh, dtype=dtype).transpose(1, 2)
+                   for n in (h, hkv, hkv))
+        got = both(fl.flash_attention_cuda, q, k, v, window=window)
+        errs["flash_attention"] = max(errs["flash_attention"], check_close(
+            f"flash {tag} bf16 B{b} H{h}/{hkv} S{s} Dh{dh}", got,
+            fl.flash_attention_torch(q, k, v, window=window), dtype))
+        sets = copies(lambda: tuple(
+            _randn(gen, b, s, n, dh, dtype=dtype).transpose(1, 2)
+            for n in (h, hkv, hkv)), 2 * (2 * b * h * s * dh
+                                          + 2 * b * hkv * s * dh))
+        records["flash_attention", path]["partition_ms"] = time_on_part(
+            lambda q, k, v: fl.flash_attention_cuda(q, k, v, window=window),
+            sets, 30)
+        del sets
+        s = 1032
+        lens = [s, 1, 517, 1000]
+        q = _randn(gen, b, h, dh, dtype=dtype)
+        kc, vc = (_randn(gen, b, s, hkv, dh, dtype=dtype) for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = both(dec.decode_attention_cuda, q, kc, vc, lengths,
+                   window=window)
+        errs["decode_attention"] = max(errs["decode_attention"], check_close(
+            f"decode {tag} bf16 B{b} H{h}/{hkv} S{s} Dh{dh}", got,
+            dec.decode_attention_torch(q, kc, vc, lengths, window=window),
+            dtype))
+        full = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        sets = copies(lambda: (
+            _randn(gen, b, h, dh, dtype=dtype),
+            _randn(gen, b, s, hkv, dh, dtype=dtype),
+            _randn(gen, b, s, hkv, dh, dtype=dtype), full),
+            2 * (2 * b * s * hkv * dh + 2 * b * h * dh))
+        records["decode_attention", path]["partition_ms"] = time_on_part(
+            lambda *a: dec.decode_attention_cuda(*a, window=window),
+            sets, 200)
+        del sets
+    # every (head dim, group) the decode kernel is built for, with the
+    # largest cluster the partition holds
+    for dh, groups in sorted(dec.GROUPS.items()):
+        for g in groups:
+            b, hkv, s = 4, 2, 1032
+            q = _randn(gen, b, hkv * g, dh, dtype=dtype)
+            kc, vc = (_randn(gen, b, s, hkv, dh, dtype=dtype)
+                      for _ in range(2))
+            lengths = torch.tensor([s, 1, 517, 1000], dtype=torch.int32,
+                                   device="cuda")
+            got = both(dec.decode_attention_cuda, q, kc, vc, lengths)
+            with part:
+                limit = dec.max_cluster(dtype, dh, g)
+            plan = dec.split_plan(b, hkv, s, g, sms=part.sms,
+                                  max_split=limit)
+            errs["decode_attention"] = max(
+                errs["decode_attention"], check_close(
+                    f"decode {tag} G{g} Dh{dh} (clusters up to {limit}, "
+                    f"plan {plan[0]} splits)", got,
+                    dec.decode_attention_torch(q, kc, vc, lengths), dtype))
+
+    args = ssd_inputs(gen, 4, 1000, 48, 64, 128, dtype, True)
+    y, hf = both(ssd.ssd_scan_cuda, *args)
+    y_ref, hf_ref = ssd.ssd_scan_torch(*args)
+    errs["ssd_scan"] = max(
+        errs["ssd_scan"],
+        check_scaled(f"ssd_scan {tag} B4 S1000 y", y, y_ref, SSD_TOL),
+        check_scaled(f"ssd_scan {tag} B4 S1000 h_final", hf, hf_ref,
+                     SSD_TOL))
+    b, s, h, p, n = 4, 1000, 48, 64, 128
+    sets = copies(lambda: ssd_inputs(gen, b, s, h, p, n, dtype, True),
+                  2 * (b * s * h * p + 2 * b * s * n)
+                  + 4 * (2 * b * s * h * p + 2 * b * h * n * p))
+    records["ssd_scan", "mamba2-780m"]["partition_ms"] = time_on_part(
+        ssd.ssd_scan_cuda, sets, 20)
+    del sets
+    for s in (1000, 4096):
+        args = rglru_inputs(gen, 4, s, 2560, torch.float32, True)
+        h, hl = both(rg.rglru_scan_cuda, *args)
+        h_ref, hl_ref = rg.rglru_scan_torch(*args)
+        errs["rglru_scan"] = max(
+            errs["rglru_scan"],
+            _check(f"rglru_scan {tag} B4 S{s} h", h, h_ref, RGLRU_TOL,
+                   RGLRU_TOL, 1.0),
+            _check(f"rglru_scan {tag} B4 S{s} h_last", hl, hl_ref,
+                   RGLRU_TOL, RGLRU_TOL, 1.0))
+    sets = copies(lambda: rglru_inputs(gen, 4, 1000, 2560, torch.float32,
+                                       True), 4 * (3 * 4 * 1000 * 2560))
+    records["rglru_scan", "recurrentgemma-2b"]["partition_ms"] = \
+        time_on_part(rg.rglru_scan_cuda, sets, 50)
+    del sets
+    for r in records.values():
+        r["partition_sms"] = part.sms
+
+
+def scans_in_corun(part_mod, errs: dict):
+    """Both scans in flight at once on the two sides of the 20/80 split,
+    each on either side, ten calls each, every result against its plain
+    version: the RG-LRU look-back (a bounded spin) and the SSD scan's
+    waves on fewer SMs beside another partition's work."""
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rg_args = rglru_inputs(gen, 4, 4096, 2560, torch.float32, True)
+    ssd_args = ssd_inputs(gen, 4, 1000, 48, 64, 128, torch.bfloat16, True)
+    rg_want, ssd_want = rg.rglru_scan_torch(*rg_args), ssd.ssd_scan_torch(
+        *ssd_args)
+    small, large = part_mod.split(20)
+    for rg_part, ssd_part in ((small, large), (large, small)):
+        outs = []
+        for _ in range(10):
+            with rg_part:
+                rg_out = rg.rglru_scan_cuda(*rg_args)
+            with ssd_part:
+                outs.append((rg_out, ssd.ssd_scan_cuda(*ssd_args)))
+        rg_part.synchronize()
+        ssd_part.synchronize()
+        tag = (f"co-run: RG-LRU on {rg_part.sms} SMs beside SSD on "
+               f"{ssd_part.sms}")
+        for i, ((h, hl), (y, hf)) in enumerate(outs):
+            quiet = i < len(outs) - 1
+            errs["rglru_scan"] = max(
+                errs["rglru_scan"],
+                _check(f"{tag}: rglru_scan S4096 h", h, rg_want[0],
+                       RGLRU_TOL, RGLRU_TOL, 1.0, quiet),
+                _check(f"{tag}: rglru_scan S4096 h_last", hl, rg_want[1],
+                       RGLRU_TOL, RGLRU_TOL, 1.0, quiet))
+            errs["ssd_scan"] = max(
+                errs["ssd_scan"],
+                _check(f"{tag}: ssd_scan S1000 y", y, ssd_want[0], SSD_TOL,
+                       SSD_TOL, float(ssd_want[0].abs().max()) + 1e-9,
+                       quiet),
+                _check(f"{tag}: ssd_scan S1000 h_final", hf, ssd_want[1],
+                       SSD_TOL, SSD_TOL, float(ssd_want[1].abs().max())
+                       + 1e-9, quiet))
+
+
+def grid_launches(records) -> int:
+    """Decode-attention launches the grid makes: each cell runs
+    ``EAGER_RUNS`` + 1 eager steps and one captured step (graph replays do
+    not pass through the wrapper), one launch per attention layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile_partitions as pp
+    steps = pp.EAGER_RUNS + 2
+    return sum(steps * sum(k in ("attn_mlp", "attn")
+                           for k in get_config(r["arch"]).layer_types())
+               for r in records)
+
+
+def corun_phase(part_mod, pp):
+    """Co-run factors: each model's step with the other's in flight on
+    the other side of a split, over its solo step on the same side."""
+    models = {arch: pp.build(arch, device="cuda")
+              for arch in {m for _, a, b in CORUN for m in (a[0], b[0])}}
+    out = []
+    for left, (ma, ba), (mb, bb) in CORUN:
+        a, b = part_mod.split(left)
+        f = pp.corun(models[ma], ba, models[mb], bb, a, b)
+        log(f"  split {left}/{100 - left} ({a.sms} + {b.sms} SMs): {ma} b{ba}"
+            f" solo {f['solo_ms'][0]:.3f} ms, co-run {f['corun_ms'][0]:.3f} "
+            f"ms (x{f['factor'][0]:.3f}); {mb} b{bb} solo "
+            f"{f['solo_ms'][1]:.3f} ms, co-run {f['corun_ms'][1]:.3f} ms "
+            f"(x{f['factor'][1]:.3f})")
+        if not all(x > 0 and math.isfinite(x) for x in f["factor"]):
+            raise AssertionError("co-run factors not measured")
+        out.append((left, f))
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_partitions(records: dict):
+    """SM partitions (green contexts): disjoint splits, the kernels on the
+    smallest partition, the L(b, p) grid from CUDA-graph replays (the path
+    whose decode-attention launches are counted), co-run factors, and the
+    elastic / SBP plan and its replay from the grid just measured."""
+    from repro_torch.core.latency import PARTITION_SIZES
+    from repro_torch.launch import partition as part_mod
+    from repro_torch.launch import profile_partitions as pp
+    from repro_torch.launch import serve
+
+    log("[6] partitions: SM partitions of the card (green contexts)")
+    total = torch.cuda.get_device_properties(0).multi_processor_count
+    splits_disjoint(part_mod, total)
+    errs = dict.fromkeys(KERNELS, 0.0)
+    kernels_on_partition(part_mod.partition(min(PARTITION_SIZES)), records,
+                         errs)
+    scans_in_corun(part_mod, errs)
+    for r in records.values():
+        r["partition_max_abs_err"] = errs[r["name"]]
+
+    log(f"  L(b, p) grid: decode step at {pp.CTX} cached positions, bf16, "
+        "full width; CUDA-graph replays on each partition (median of "
+        f"{pp.RUNS}), eager host wall beside")
+    mods = counters()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    grid = pp.profile(log=lambda line: log("  " + line))
+    counts = {k: m.launches for k, m in mods.items()}
+    want = dict.fromkeys(KERNELS, 0)
+    want["decode_attention"] = grid_launches(grid)
+    log(f"  grid: {len(grid)} cells in {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError("the grid did not go through the decode "
+                             "kernel as its path says")
+    if any(not (r["step_ms"] > 0 and math.isfinite(r["step_ms"]))
+           for r in grid):
+        raise AssertionError("a grid cell has no step time")
+    pp.write(grid, LBP_OUT)
+    log(pp.table(grid))
+    dec = records["decode_attention", "yi-9b"]
+    # the grid's own record: yi-9b's shape, measured in phases 3 and 6
+    records["decode_attention", "lbp-grid"] = dict(
+        dec, path="lbp-grid", launches=counts["decode_attention"])
+
+    log("  co-run factors (CUDA events over 20 graph replays each)")
+    corun_phase(part_mod, pp)
+
+    profiles, provider = serve.load_catalog(str(LBP_OUT))
+    lam = serve.max_scales(profiles, provider, MIX, 4)
+    ratio = lam["elastic"] / lam["sbp"] if lam["sbp"] else float("nan")
+    log(f"  4 cards, mix {MIX}: max scale elastic {lam['elastic']:.3f}x, "
+        f"SBP {lam['sbp']:.3f}x, elastic / SBP {ratio:.3f}")
+    if not lam["elastic"] > 0:
+        raise AssertionError("elastic partitioning admits no load")
+    rates = {m: r * lam["elastic"] * serve.REPLAY_SHARE
+             for m, r in MIX.items()}
+    met, result = serve.serve_end_to_end(profiles, provider, rates,
+                                         n_gpus=4, horizon_s=20.0, seed=0)
+    rep = serve.replay_summary(met, result, rates)
+    log("  replay " + json.dumps(rep))
+    if not rep["conserved"] or rep["total"] == 0:
+        raise AssertionError("the replay lost requests")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -698,10 +1013,12 @@ def main() -> int:
     records = phase_kernels()
     phase_parity()
     phase_serve(records)
+    phase_partitions(records)
     log(f"total {time.perf_counter() - t0:.1f} s")
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "device_ms", "library_device_ms")
+            "library_ms", "device_ms", "library_device_ms", "partition_sms",
+            "partition_ms", "partition_max_abs_err")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": device}))

@@ -1,0 +1,20 @@
+"""The gpu-let control plane, copied from the JAX package's ``core`` (pure
+Python and numpy; imports rewritten to ``repro_torch``), plus
+``h100lets``: L(b, p) measured on SM partitions of an H100."""
+from repro_torch.core.elastic import ElasticPartitioning
+from repro_torch.core.gpulet import Assignment, GpuLet, GpuState, fresh_cluster
+from repro_torch.core.hardware import (H100_SXM, PAPER_CLUSTER, RTX_2080TI,
+                                       AcceleratorSpec, ClusterSpec)
+from repro_torch.core.interference import InterferenceModel, fit_default_model
+from repro_torch.core.latency import Admission, LatencyProvider
+from repro_torch.core.profiles import (PAPER_MODELS, ModelProfile,
+                                       calibrate_profiles)
+from repro_torch.core.sbp import SquishyBinPacking
+from repro_torch.core.scheduler_base import ScheduleResult, SchedulerBase
+
+__all__ = ["AcceleratorSpec", "Admission", "Assignment", "ClusterSpec",
+           "ElasticPartitioning", "GpuLet", "GpuState", "H100_SXM",
+           "InterferenceModel", "LatencyProvider", "ModelProfile",
+           "PAPER_CLUSTER", "PAPER_MODELS", "RTX_2080TI", "ScheduleResult",
+           "SchedulerBase", "SquishyBinPacking", "calibrate_profiles",
+           "fit_default_model", "fresh_cluster"]

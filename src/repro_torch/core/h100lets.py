@@ -1,0 +1,155 @@
+"""h100-lets: the paper's gpu-lets as SM partitions of one H100, with
+L(b, p) measured on the card.
+
+The counterpart of the JAX package's ``core/tpulets.py``.  There a tpu-let
+is a sub-mesh of a pod and L(b, p) is derived from the compiled dry-run's
+roofline terms.  Here a gpu-let is a set of SMs of the card (a green
+context, ``launch/partition.py``) and L(b, p) is measured, as the paper
+measured it on its 2080 Ti under MPS: ``launch/profile_partitions.py``
+replays a CUDA graph of each served model's decode step on each partition
+and writes one JSON line per (arch, percent, batch) to
+``results/h100_lbp.jsonl``.
+
+:class:`MeasuredLatency` serves that table as the card gave it: it neither
+smooths it nor makes it monotone.  A batch between two measured sizes runs
+as the next measured size up (the graph captured at that batch, padded),
+so its latency is that cell's.  SLOs follow the paper's convention, as
+``tpulets`` does: 2x the solo full-card latency at batch 32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from bisect import bisect_left
+
+from repro_torch.core.latency import (PARTITION_SIZES, SPLIT_PAIRS,
+                                      LatencyProvider)
+from repro_torch.core.profiles import ModelProfile
+
+#: decode batches of the measured grid (the paper's range, up to 32)
+LBP_BATCHES: tuple[int, ...] = (1, 2, 4, 8, 16, 32)
+#: the calibration batch of the SLO convention
+SLO_BATCH = 32
+
+
+class MeasuredLatency(LatencyProvider):
+    """L(b, p) from a measured table: ``table[arch][(percent, batch)]`` in
+    ms.  ``sms[percent]`` is the SM count each partition size was granted
+    (kept for printouts)."""
+
+    partition_sizes = PARTITION_SIZES
+    split_pairs = SPLIT_PAIRS
+    max_batch = 32
+
+    def __init__(self, table: dict[str, dict[tuple[int, int], float]], *,
+                 batch_sizes: tuple[int, ...] = LBP_BATCHES,
+                 sms: dict[int, int] | None = None, card: str = ""):
+        self.table = table
+        self.batch_sizes = tuple(sorted(batch_sizes))
+        self.sms = dict(sms or {})
+        self.card = card
+
+    def latency_ms(self, prof: ModelProfile, batch: int, p: float) -> float:
+        if batch <= 0:
+            return 0.0
+        percent = round(p * 100)
+        i = bisect_left(self.batch_sizes, batch)
+        if i == len(self.batch_sizes):
+            raise ValueError(f"{prof.name}: batch {batch} is above the "
+                             f"measured {self.batch_sizes[-1]}")
+        try:
+            return self.table[prof.name][percent, self.batch_sizes[i]]
+        except KeyError:
+            raise KeyError(f"{prof.name}: no measured L(b, p) at "
+                           f"{percent}% of the card") from None
+
+
+def _slo_profiles(provider: MeasuredLatency
+                  ) -> tuple[dict[str, ModelProfile], MeasuredLatency]:
+    """Profiles (paper-convention SLOs) + provider for a catalog."""
+    profiles = {}
+    for arch in provider.table:
+        prof = ModelProfile(
+            name=arch, slo_ms=1.0, flops_per_req=0.0, weight_mb=0.0,
+            act_mb_per_req=0.0, par1=1.0, par_exp=0.0, t0_ms=0.0,
+            l2_util_base=0.5)
+        # paper convention: SLO = 2x solo latency at the calibration batch
+        solo = provider.latency_ms(prof, SLO_BATCH, 1.0)
+        profiles[arch] = dataclasses.replace(prof, slo_ms=2.0 * solo)
+    return profiles, provider
+
+
+#: A hand-written table for the CPU path when no measured file is given:
+#: SYNTHETIC, not measured.  Three archetypes of decode steps shaped like
+#: the served families: a weight-read-bound 9B dense decoder whose step
+#: grows little with the batch, a small SSM that is host-bound at low
+#: batch, and a hybrid in between.  Per arch: ms at (percent, batch).
+SYNTHETIC_TABLE: dict[str, dict[tuple[int, int], float]] = {
+    "synthetic-dense-9b": {
+        (p, b): round(6.0 * (1.0 + 0.6 * (100 - p) / 80) + 0.05 * b
+                      * (100 / p) ** 0.5, 4)
+        for p in PARTITION_SIZES for b in LBP_BATCHES},
+    "synthetic-ssm-780m": {
+        (p, b): round(1.5 + 0.5 * (1.0 + (100 - p) / 80) + 0.02 * b
+                      * (100 / p), 4)
+        for p in PARTITION_SIZES for b in LBP_BATCHES},
+    "synthetic-hybrid-2b": {
+        (p, b): round(2.5 * (1.0 + 0.8 * (100 - p) / 80) + 0.03 * b
+                      * (100 / p), 4)
+        for p in PARTITION_SIZES for b in LBP_BATCHES},
+}
+SYNTHETIC_MIX = {"synthetic-dense-9b": 1.0, "synthetic-ssm-780m": 4.0,
+                 "synthetic-hybrid-2b": 2.0}
+
+
+def synthetic_catalog() -> tuple[dict[str, ModelProfile], MeasuredLatency]:
+    """(profiles, provider) from :data:`SYNTHETIC_TABLE`.
+
+    Lets the h100-let path run end to end on a machine with no measured
+    file; clearly labelled synthetic: the numbers are representative of the
+    families, not measured."""
+    return _slo_profiles(MeasuredLatency(
+        {a: dict(t) for a, t in SYNTHETIC_TABLE.items()},
+        card="synthetic (not measured)"))
+
+
+def load_catalog(path: str) -> tuple[dict[str, ModelProfile],
+                                     MeasuredLatency]:
+    """(profiles, provider) from a ``profile_partitions`` results file.
+
+    Refuses a file with records from more than one card (name and power
+    limit), a cell measured twice, or a missing (arch, percent, batch) cell
+    of the grid: every arch at every partition size and every batch found
+    in the file."""
+    table: dict[str, dict[tuple[int, int], float]] = {}
+    cards, batches, sms = set(), set(), {}
+    with open(path) as f:
+        for n, line in enumerate(f, 1):
+            if not line.strip():
+                continue
+            r = json.loads(line)
+            cards.add((r["card"], r["power_limit_w"]))
+            cell = (int(r["percent"]), int(r["batch"]))
+            cells = table.setdefault(r["arch"], {})
+            if cell in cells:
+                raise ValueError(f"{path}:{n}: {r['arch']} at {cell} is "
+                                 "measured twice")
+            cells[cell] = float(r["step_ms"])
+            batches.add(cell[1])
+            sms.setdefault(cell[0], int(r["sms"]))
+    if len(cards) != 1:
+        raise ValueError(f"{path}: records from {len(cards)} cards "
+                         f"{sorted(cards)}; a catalog is one card's")
+    missing = [(a, p, b) for a, cells in table.items()
+               for p in PARTITION_SIZES for b in sorted(batches)
+               if (p, b) not in cells]
+    if missing:
+        raise ValueError(f"{path}: {len(missing)} missing (arch, percent, "
+                         f"batch) cells, e.g. {missing[:4]}")
+    if SLO_BATCH not in batches:
+        raise ValueError(f"{path}: no batch {SLO_BATCH}, the SLO's "
+                         "calibration batch")
+    (card, power), = cards
+    return _slo_profiles(MeasuredLatency(
+        table, batch_sizes=tuple(sorted(batches)), sms=sms,
+        card=f"{card}, {power} W"))

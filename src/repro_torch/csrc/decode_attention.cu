@@ -38,6 +38,7 @@
 // cudaErrorInvalidValue for a shape it is not built for.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -422,56 +423,105 @@ struct Params {
   double scale;
 };
 
+// The calling thread's current context (the whole card's, or a
+// partition's green context), through the driver entry point, so that
+// nothing links libcuda; null if there is none.
+CUcontext current_context() {
+  using GetCurrent = CUresult (*)(CUcontext*);
+  static GetCurrent fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuCtxGetCurrent", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuCtxGetCurrent", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? (GetCurrent)p : nullptr;
+  }();
+  CUcontext c = nullptr;
+  if (fn) fn(&c);
+  return c;
+}
+
+// One instantiation of the kernel: its attributes, launch and cluster
+// occupancy.
 template <typename T, int D, int G>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int* lengths, void* o, const Params& p,
-                   cudaStream_t stream) {
-  auto kernel = decode_kernel<T, D, G>;
-  constexpr size_t smem = smem_bytes<T, D, G>();
-  // The attributes are set once per device and instantiation.
-  static uint64_t ready = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (!(ready >> dev & 1)) {
-    err = cudaFuncSetAttribute(
+struct Decode {
+  static constexpr size_t smem = smem_bytes<T, D, G>();
+
+  // The shared-memory opt-in and the non-portable cluster size are
+  // attributes of the kernel in one context: a partition (a green context)
+  // is another context on the same card.  They are set once per context.
+  static cudaError_t prepare() {
+    constexpr int MAX_CONTEXTS = 64;
+    static CUcontext ready[MAX_CONTEXTS];
+    static int n_ready = 0;
+    const CUcontext ctx = current_context();
+    for (int i = 0; i < n_ready; ++i)
+      if (ctx && ready[i] == ctx) return cudaSuccess;
+    auto kernel = decode_kernel<T, D, G>;
+    cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    ready |= uint64_t(1) << dev;
+    if (err == cudaSuccess && ctx && n_ready < MAX_CONTEXTS)
+      ready[n_ready++] = ctx;
+    return err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.n_split, p.Hkv * (p.G / G), p.B);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.n_split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), lengths, static_cast<T*>(o), int(p.G),
-      int(p.S),
-      int(p.chunk), p.sqb, p.sqh, CacheStrides{p.skb, p.sks, p.skh},
-      CacheStrides{p.svb, p.svs, p.svh}, p.sob, p.soh, int(p.window),
-      float(p.scale * 1.4426950408889634));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
 
-template <typename T, int D>
-cudaError_t launch_d(const void* q, const void* kc, const void* vc,
-                     const int* lengths, void* o, const Params& p,
-                     cudaStream_t stream) {
+  static cudaLaunchConfig_t config(const Params& p, cudaStream_t stream,
+                                   cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(p.n_split, p.Hkv * (p.G / G), p.B);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.n_split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+  }
+
+  static cudaError_t launch(const void* q, const void* kc, const void* vc,
+                            const int* lengths, void* o, const Params& p,
+                            cudaStream_t stream) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config(p, stream, attr);
+    err = cudaLaunchKernelEx(
+        &cfg, decode_kernel<T, D, G>, static_cast<const T*>(q),
+        static_cast<const T*>(kc), static_cast<const T*>(vc), lengths,
+        static_cast<T*>(o), int(p.G), int(p.S), int(p.chunk), p.sqb, p.sqh,
+        CacheStrides{p.skb, p.sks, p.skh}, CacheStrides{p.svb, p.svs, p.svh},
+        p.sob, p.soh, int(p.window), float(p.scale * 1.4426950408889634));
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+
+  // Clusters of p.n_split blocks that the current context's SMs hold at
+  // once (0: such a cluster cannot launch there).
+  static cudaError_t max_clusters(const Params& p, int* n) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config(p, nullptr, attr);
+    return cudaOccupancyMaxActiveClusters(n, decode_kernel<T, D, G>, &cfg);
+  }
+};
+
+// Calls f(Decode<T, D, heads_per_block(G)>{}) for the instantiation of
+// p's dtype, head dim and group; cudaErrorInvalidValue if there is none.
+template <typename T, int D, typename F>
+cudaError_t visit_d(const Params& p, F&& f) {
 #define REPRO_DECODE_CASE(GG) \
   case GG:                     \
-    return launch<T, D, heads_per_block(GG)>(q, kc, vc, lengths, o, p, stream);
+    return f(Decode<T, D, heads_per_block(GG)>{});
   // the groups each head dim is built for: kernels/decode_attention.GROUPS
   if constexpr (D == 64 || D == 128) {
     switch (p.G) {
@@ -499,6 +549,25 @@ cudaError_t launch_d(const void* q, const void* kc, const void* vc,
 #undef REPRO_DECODE_CASE
 }
 
+template <typename F>
+cudaError_t visit(const Params& p, F&& f) {
+#define REPRO_DECODE_D(T, DD) \
+  if (p.D == DD) return visit_d<T, DD>(p, f);
+  if (p.dtype == 0) {
+    REPRO_DECODE_D(float, 64)
+    REPRO_DECODE_D(float, 128)
+    REPRO_DECODE_D(float, 160)
+    REPRO_DECODE_D(float, 256)
+  } else if (p.dtype == 1) {
+    REPRO_DECODE_D(__nv_bfloat16, 64)
+    REPRO_DECODE_D(__nv_bfloat16, 128)
+    REPRO_DECODE_D(__nv_bfloat16, 160)
+    REPRO_DECODE_D(__nv_bfloat16, 256)
+  }
+#undef REPRO_DECODE_D
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -515,21 +584,18 @@ int decode_attention_launch(const void* q, const void* kc, const void* vc,
   if (p.n_split < 1 || p.n_split > MAX_SPLIT) return cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_DECODE_D(T, DD) \
-  if (p.D == DD) return launch_d<T, DD>(q, kc, vc, len, o, p, st);
-  if (p.dtype == 0) {
-    REPRO_DECODE_D(float, 64)
-    REPRO_DECODE_D(float, 128)
-    REPRO_DECODE_D(float, 160)
-    REPRO_DECODE_D(float, 256)
-  } else if (p.dtype == 1) {
-    REPRO_DECODE_D(__nv_bfloat16, 64)
-    REPRO_DECODE_D(__nv_bfloat16, 128)
-    REPRO_DECODE_D(__nv_bfloat16, 160)
-    REPRO_DECODE_D(__nv_bfloat16, 256)
-  }
-#undef REPRO_DECODE_D
-  return cudaErrorInvalidValue;
+  return visit(p, [&](auto k) {
+    return decltype(k)::launch(q, kc, vc, len, o, p, st);
+  });
+}
+
+// *n = clusters of params' n_split blocks (of its dtype, head dim and
+// group) that the current context's SMs hold at once.
+int decode_attention_max_clusters(const void* params, int* n) {
+  const Params& p = *static_cast<const Params*>(params);
+  *n = 0;
+  if (p.n_split < 1 || p.n_split > MAX_SPLIT) return cudaErrorInvalidValue;
+  return visit(p, [&](auto k) { return decltype(k)::max_clusters(p, n); });
 }
 
 const char* cuda_error_string(int err) {

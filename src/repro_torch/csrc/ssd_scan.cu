@@ -41,7 +41,8 @@
 //     sums are double-buffered too, so a chunk has two barriers.  Shared
 //     memory is 75,264 bytes and ptxas keeps to 168 registers, so three
 //     blocks share an SM and the 384 blocks of the serving shape run as
-//     one wave on 132 SMs;
+//     one wave on 132 SMs (on a partition of fewer SMs, several waves:
+//     no block waits on another, so only the time changes);
 //   * positions at or past S read as dt = 0 and zero x, B, C: they leave
 //     the state unchanged and write no y, so any S works.
 //

@@ -24,16 +24,23 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+           "partition_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# .part: (key, SMs) of the SM partition whose context is current on this
+# thread (a CUDA context is current per thread), set by
+# ``repro_torch.launch.partition.Partition``; unset for the whole card
+_current = threading.local()
+_card_sms: dict[int, int] = {}
 
 
 def nvcc() -> str:
@@ -109,6 +116,34 @@ def current_stream(device_index: int) -> int:
     waits on the host.)"""
     import torch
     return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def set_partition(part: tuple[int, int] | None):
+    """Make ``part`` ((key, SMs), or None for the whole card) the partition
+    that launches go to; returns the one it replaces."""
+    prev = getattr(_current, "part", None)
+    _current.part = part
+    return prev
+
+
+def partition_key() -> int:
+    """The key of the current partition (0: the whole card)."""
+    part = getattr(_current, "part", None)
+    return 0 if part is None else part[0]
+
+
+def partition(device_index: int) -> tuple[int, int]:
+    """(key, SMs) of where a launch on card ``device_index`` runs now: the
+    current partition's, or (0, the card's SM count)."""
+    part = getattr(_current, "part", None)
+    if part is not None:
+        return part
+    sms = _card_sms.get(device_index)
+    if sms is None:
+        import torch
+        sms = _card_sms[device_index] = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return 0, sms
 
 
 def check(lib: ctypes.CDLL, err: int, name: str):

@@ -20,10 +20,14 @@ its own share of the outputs.  A block serves at most 5 query heads
 (``heads_per_block``): G 8 and 16 run as blocks of 4, G 10 as two blocks
 of 5, which keeps a lane's accumulator small and gives more blocks.
 Nothing is allocated per call but the output.  Splitting the cache length
-fills the 132 SMs where B * Hkv (16 for yi-9b at batch 4, 4 for
+fills the SMs where B * Hkv (16 for yi-9b at batch 4, 4 for
 recurrentgemma) could not; ``split_plan`` is the rule the card's sweep
-chose (``PERF.md``).  ``lengths`` stays on the device: the blocks
-read it themselves, so a decode step never waits on the host.  The cache
+chose (``PERF.md``), taken on the SMs of the partition the launch runs on
+(the whole card's 132, or a gpu-let's, ``launch/partition.py``), with no
+cluster larger than that partition can hold: a 16-block cluster needs 16
+SMs of one GPC inside it.  A cluster that cannot launch raises.
+``lengths`` stays on the device: the blocks read it themselves, so a
+decode step never waits on the host.  The cache
 rows must be 16-byte aligned (base and strides), as the model's caches
 are.
 """
@@ -45,12 +49,13 @@ GROUPS = {64: (1, 2, 4, 8, 16), 128: (1, 2, 4, 8, 16), 160: (4,),
           256: (10,)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SPLIT = 16            # the largest thread block cluster of an H100
-_TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100 (the sweep's best)
+_BLOCKS_PER_SM = 2        # the sweep's best on the whole card
 _MIN_SPLIT = 64           # fewest cache slots worth a block of their own
 
 _ARGTYPES = [ctypes.c_void_p] * 7
 _lib = None  # the loaded library, once built
-_plans: dict = {}  # launch signature -> _Params (checked once)
+_plans: dict = {}  # (partition, launch signature) -> _Params (checked once)
+_max_split: dict = {}  # (partition, dtype, Dh, G) -> largest cluster
 
 
 class _Params(ctypes.Structure):
@@ -128,18 +133,61 @@ def heads_per_block(g: int) -> int:
     return g if g <= 4 else 5 if g % 5 == 0 else 4
 
 
-def split_plan(b: int, hkv: int, s: int, g: int = 1) -> tuple[int, int]:
+def split_plan(b: int, hkv: int, s: int, g: int = 1, *, sms: int = 132,
+               max_split: int = MAX_SPLIT) -> tuple[int, int]:
     """(number of cache splits, slots per split) for a launch over ``s``
-    cache slots, ``b`` rows, ``hkv`` KV heads of ``g`` query heads each.
+    cache slots, ``b`` rows, ``hkv`` KV heads of ``g`` query heads each, on
+    ``sms`` SMs that hold clusters of at most ``max_split`` blocks.
 
     The rule the card's sweep chose (``PERF.md``): split each
     (row, KV head, head block) until the launch has about two blocks per SM,
-    with at least 64 slots a split and at most 16 splits (one cluster)."""
+    with at least 64 slots a split and at most ``max_split`` splits (one
+    cluster)."""
+    if not 1 <= max_split <= MAX_SPLIT:
+        raise ValueError(f"split_plan: max_split {max_split} not in "
+                         f"1..{MAX_SPLIT}")
     blocks = b * hkv * (g // heads_per_block(g))
-    n_split = max(1, min(-(-_TARGET_BLOCKS // blocks), -(-s // _MIN_SPLIT),
-                         MAX_SPLIT))
+    n_split = max(1, min(-(-_BLOCKS_PER_SM * sms // blocks),
+                         -(-s // _MIN_SPLIT), max_split))
     chunk = -(-s // n_split)
     return -(-s // chunk), chunk
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.library("decode_attention", _ARGTYPES)
+        lib.decode_attention_max_clusters.argtypes = [ctypes.c_void_p] * 2
+        lib.decode_attention_max_clusters.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def max_cluster(dtype, dh: int, g: int) -> int:
+    """The largest cluster of decode blocks (``dtype``, head dim ``dh``,
+    group ``g``) that the current partition of the card holds, from
+    ``cudaOccupancyMaxActiveClusters`` in its context.  Raises if not even
+    one block fits."""
+    key = (_build.partition_key(), dtype, dh, g)
+    limit = _max_split.get(key)
+    if limit is None:
+        lib = _library()
+        limit = 0
+        for n_split in range(MAX_SPLIT, 0, -1):
+            params = _Params(_DTYPES[dtype], 1, 1, g, n_split, dh, n_split, 1,
+                             *[0] * 10, -1, 1.0)
+            n = ctypes.c_int(0)
+            _build.check(lib, lib.decode_attention_max_clusters(
+                ctypes.addressof(params), ctypes.byref(n)),
+                "decode_attention (cluster occupancy)")
+            if n.value >= 1:
+                limit = n_split
+                break
+        if limit == 0:
+            raise RuntimeError("decode_attention_cuda: no cluster of decode "
+                               "blocks fits this partition")
+        _max_split[key] = limit
+    return limit
 
 
 def _plan(q, k_cache, v_cache, lengths, window, n_split) -> _Params:
@@ -147,12 +195,16 @@ def _plan(q, k_cache, v_cache, lengths, window, n_split) -> _Params:
     _check(q, k_cache, v_cache, lengths, window)
     b, h, dh = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
+    sms = _build.partition(q.device.index)[1]
+    limit = max_cluster(q.dtype, dh, h // hkv)
     if n_split is None:
-        n_split, chunk = split_plan(b, hkv, s, h // hkv)
+        n_split, chunk = split_plan(b, hkv, s, h // hkv, sms=sms,
+                                    max_split=limit)
     else:
-        if not 1 <= n_split <= min(s, MAX_SPLIT):
+        if not 1 <= n_split <= min(s, limit):
             raise ValueError(f"decode_attention_cuda: n_split {n_split} not "
-                             f"in 1..{min(s, MAX_SPLIT)}")
+                             f"in 1..{min(s, limit)} (clusters of at most "
+                             f"{limit} blocks fit where it runs)")
         chunk = -(-s // n_split)
     # the output is allocated contiguous: strides (h * dh, dh)
     return _Params(_DTYPES[q.dtype], b, hkv, h // hkv, s, dh, n_split, chunk,
@@ -172,8 +224,9 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
     The decode step is host-bound, so a call checks the full contract once
     per signature (shapes, strides, dtypes, devices, window, split) and
     then only the cache's alignment; it allocates only the output."""
-    global launches, _lib
-    key = (q.shape, q.stride(), q.dtype, q.device, k_cache.shape,
+    global launches
+    key = (_build.partition_key(), q.shape, q.stride(),
+           q.dtype, q.device, k_cache.shape,
            k_cache.stride(), k_cache.dtype, k_cache.device, v_cache.shape,
            v_cache.stride(), v_cache.dtype, v_cache.device, lengths.shape,
            lengths.stride(), lengths.dtype, lengths.device, window, n_split)
@@ -185,17 +238,16 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
     if (kp | vp) % 16:
         raise ValueError("decode_attention_cuda: cache rows must be 16-byte "
                          "aligned")
-    if _lib is None:
-        _lib = _build.library("decode_attention", _ARGTYPES)
+    lib = _lib or _library()
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
             return decode_attention_cuda(q, k_cache, v_cache, lengths,
                                          window=window, n_split=n_split)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _lib.decode_attention_launch(
+    err = lib.decode_attention_launch(
         q.data_ptr(), kp, vp, lengths.data_ptr(), o.data_ptr(),
         ctypes.addressof(params), _build.current_stream(q.device.index))
     if err:
-        _build.check(_lib, err, "decode_attention")
+        _build.check(lib, err, "decode_attention")
     launches += 1
     return o

@@ -6,7 +6,8 @@
 Builds the executor's model (bf16, weights from ``--seed``), warms up one
 prefill and a few decode steps, then traces with ``torch.profiler`` (CPU
 and CUDA activities) two windows: one prefill of the batch, and
-``--steps`` decode steps.  For each window it prints one JSON line: host
+``--steps`` decode steps; on the card a third, ``--steps`` replays of one
+decode step captured as a CUDA graph (the step the L(b, p) grid times).  For each window it prints one JSON line: host
 wall time (synchronised), device busy time (the union of the kernels'
 intervals on the card), the device's idle share of the wall time, the
 number of kernels, the kernels with the most device time, and each of
@@ -121,12 +122,45 @@ def run(arch: str, *, batch: int, prompt_len: int, steps: int, seed: int,
         if trace_dir:
             Path(trace_dir).mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(Path(trace_dir) / f"{name}.json"))
-        rep = window_report(name, prof, wall, n)
-        rep.update(arch=cfg.name, batch=batch, prompt_len=prompt_len,
-                   device=(torch.cuda.get_device_name(dev)
-                           if dev.type == "cuda" else "cpu"))
-        reports.append(rep)
+        reports.append(_labelled(window_report(name, prof, wall, n), cfg,
+                                 batch, prompt_len, dev))
+    if dev.type == "cuda":
+        reports.append(_labelled(
+            graph_window(model, cache, tok, steps, activities, trace_dir),
+            cfg, batch, prompt_len, dev))
     return reports
+
+
+def _labelled(rep: dict, cfg, batch: int, prompt_len: int, dev) -> dict:
+    rep.update(arch=cfg.name, batch=batch, prompt_len=prompt_len,
+               device=(torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"))
+    return rep
+
+
+def graph_window(model, cache, tok, steps: int, activities,
+                 trace_dir) -> dict:
+    """The decode step as ``launch/profile_partitions.py`` times it: one
+    step captured as a CUDA graph on the whole card, replayed ``steps``
+    times under the profiler, so the idle share is the gaps between the
+    graph's kernels, not the host's."""
+    from repro_torch.launch.partition import partition
+    from repro_torch.launch.profile_partitions import capture
+    whole = partition(100, model.device.index or 0)
+    with whole:
+        graph, _ = capture(model, cache, tok, whole)
+        graph.replay()
+        whole.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                graph.replay()
+            whole.synchronize()
+            wall = time.perf_counter() - t0
+    graph.reset()
+    if trace_dir:
+        prof.export_chrome_trace(str(Path(trace_dir) / "decode_graph.json"))
+    return window_report("decode_graph", prof, wall, steps)
 
 
 def main(argv=None) -> list[dict]:

@@ -261,3 +261,180 @@ def test_one_decode_call_is_one_kernel_launch(cuda):
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels
+
+
+# ---------------------------------------------------- SM partitions ----
+# The kernels on a gpu-let: a green context holding part of the card's SMs
+# (repro_torch.launch.partition).  The smallest partition is the paper's
+# 20%, 24 SMs of the H100's 132.
+
+
+@pytest.fixture(scope="module")
+def smallest():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel; no CPU mode)")
+    from repro_torch.launch.partition import partition
+    return partition(20)
+
+
+@pytest.mark.parametrize("left", [20, 40, 50, 60, 80])
+def test_split_partitions_are_disjoint(cuda, left):
+    """One split gives two disjoint SM sets, each of the count the driver
+    granted, together the whole card."""
+    from repro_torch.launch.partition import sm_ids, split
+    a, b = split(left)
+    ia, ib = sm_ids(a), sm_ids(b)
+    assert not ia & ib
+    assert (len(ia), len(ib)) == (a.sms, b.sms)
+    total = torch.cuda.get_device_properties(0).multi_processor_count
+    assert a.sms + b.sms == total
+    assert a.sms % 8 == 0 and abs(a.sms - left / 100 * total) <= 8
+    # a split is made once and kept: the same pair again
+    assert split(left) == (a, b)
+
+
+def _kernel_case(name, rng, device):
+    """(kernel call, plain call, compare) at a serving head shape."""
+    if name == "flash_attention":
+        q, k, v = (on(device, rng, 2, 300, n, 128).bfloat16().transpose(1, 2)
+                   for n in (32, 4, 4))
+        return (lambda: tflash.flash_attention_cuda(q, k, v),
+                lambda: tflash.flash_attention_torch(q, k, v),
+                lambda g, w: close_rows(g, w, torch.bfloat16))
+    if name == "decode_attention":
+        q = on(device, rng, 4, 32, 128).bfloat16()
+        kc, vc = (on(device, rng, 4, 1032, 4, 128).bfloat16()
+                  for _ in range(2))
+        lengths = torch.tensor([1032, 517, 1, 1000], dtype=torch.int32,
+                               device=device)
+        return (lambda: tdecode.decode_attention_cuda(q, kc, vc, lengths),
+                lambda: tdecode.decode_attention_torch(q, kc, vc, lengths),
+                lambda g, w: close_rows(g, w, torch.bfloat16))
+    if name == "ssd_scan":
+        args = ssd_args(device, rng, 2, 300, 48, torch.bfloat16, True)
+
+        def cmp(got, want):
+            for g, w in zip(got, want):
+                scale = float(w.abs().max()) + 1e-9
+                torch.testing.assert_close(g / scale, w / scale,
+                                           rtol=SSD_TOL, atol=SSD_TOL)
+        return (lambda: tssd.ssd_scan_cuda(*args),
+                lambda: tssd.ssd_scan_torch(*args), cmp)
+    a = torch.sigmoid(on(device, rng, 2, 4096, 2560)) * 0.2 + 0.8
+    bb = on(device, rng, 2, 4096, 2560, scale=0.1)
+
+    def cmp(got, want):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **SCAN)
+    return (lambda: trglru.rglru_scan_cuda(a, bb),
+            lambda: trglru.rglru_scan_torch(a, bb), cmp)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "ssd_scan", "rglru_scan"])
+def test_kernel_on_smallest_partition_after_whole_card(cuda, smallest, name):
+    """Each kernel launched first on the whole card, then on 24 SMs (the
+    per-context attributes must be set again there), against its plain
+    version.  The RG-LRU case runs 128 chunks, so its look-back waits on
+    blocks that a small partition runs in many waves."""
+    call, plain, cmp = _kernel_case(name, np.random.default_rng(11), cuda)
+    whole = call()
+    torch.cuda.synchronize()
+    with smallest:
+        got = call()
+        smallest.synchronize()
+    want = plain()
+    cmp(whole, want)
+    cmp(got, want)
+
+
+@pytest.mark.parametrize("dh,g", list(decode_cases()))
+def test_decode_every_group_on_smallest_partition(cuda, smallest, dh, g):
+    """The split plan of 24 SMs, with clusters no larger than the
+    partition holds."""
+    rng = np.random.default_rng(dh + g)
+    b, hkv, s = 4, 2, 1032
+    with smallest:
+        q = on(cuda, rng, b, hkv * g, dh).bfloat16()
+        kc, vc = (on(cuda, rng, b, s, hkv, dh).bfloat16() for _ in range(2))
+        lengths = torch.tensor([1, 517, s, 1000], dtype=torch.int32,
+                               device=cuda)
+        limit = tdecode.max_cluster(torch.bfloat16, dh, g)
+        n_split, _ = tdecode.split_plan(b, hkv, s, g, sms=smallest.sms,
+                                        max_split=limit)
+        assert 1 <= n_split <= limit <= tdecode.MAX_SPLIT
+        got = tdecode.decode_attention_cuda(q, kc, vc, lengths)
+        smallest.synchronize()
+        if limit < tdecode.MAX_SPLIT:
+            with pytest.raises(ValueError):
+                tdecode.decode_attention_cuda(q, kc, vc, lengths,
+                                              n_split=limit + 1)
+    close_rows(got, tdecode.decode_attention_torch(q, kc, vc, lengths),
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch,layers", [("yi-9b", 2), ("mamba2-780m", 2),
+                                         ("recurrentgemma-2b", 3)])
+def test_captured_decode_step_equals_eager_bitwise(cuda, smallest, arch,
+                                                   layers):
+    """A decode step at full width (a few layers, bf16) captured as a CUDA
+    graph on the partition gives the eager step's logits bit for bit, and
+    still does after other allocations and ``empty_cache`` (a recurrent
+    layer's state inputs must stay alive while the graph does)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile_partitions as pp
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = Model(cfg, dtype=torch.bfloat16, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    with torch.inference_mode():
+        cache, tokens = pp.filled_cache(model, 8, seed=1)
+        held = [dict(layer) for layer in cache["layers"]]
+        with smallest:
+            eager, _ = model.decode_step(cache, tokens)
+            for layer, h in zip(cache["layers"], held):
+                layer.update(h)  # the step's inputs again
+            graph, logits = pp.capture(model, cache, tokens, smallest)
+            graph.replay()
+            smallest.synchronize()
+            assert torch.equal(logits, eager)
+        junk = [torch.randn(1 << 22, device="cuda") for _ in range(16)]
+        del junk
+        torch.cuda.empty_cache()
+        with smallest:
+            graph.replay()
+            smallest.synchronize()
+        assert torch.equal(logits, eager)
+        graph.reset()
+
+
+def test_scans_in_flight_on_both_sides_of_a_split(cuda):
+    """The RG-LRU look-back (a bounded spin that traps) and the SSD scan
+    in flight at once on the two sides of the 20/80 split, each on
+    either side, against their plain versions."""
+    from repro_torch.launch.partition import split
+    rng = np.random.default_rng(12)
+    a = torch.sigmoid(on(cuda, rng, 2, 4096, 2560)) * 0.2 + 0.8
+    bb = on(cuda, rng, 2, 4096, 2560, scale=0.1)
+    ssd_in = ssd_args(cuda, rng, 2, 300, 48, torch.bfloat16, True)
+    rg_want = trglru.rglru_scan_torch(a, bb)
+    ssd_want = tssd.ssd_scan_torch(*ssd_in)
+    small, large = split(20)
+    for rg_part, ssd_part in ((small, large), (large, small)):
+        outs = []
+        for _ in range(5):
+            with rg_part:
+                rg_out = trglru.rglru_scan_cuda(a, bb)
+            with ssd_part:
+                outs.append((rg_out, tssd.ssd_scan_cuda(*ssd_in)))
+        rg_part.synchronize()
+        ssd_part.synchronize()
+        for rg_out, ssd_out in outs:
+            for g, w in zip(rg_out, rg_want):
+                torch.testing.assert_close(g, w, **SCAN)
+            for g, w in zip(ssd_out, ssd_want):
+                scale = float(w.abs().max()) + 1e-9
+                torch.testing.assert_close(g / scale, w / scale,
+                                           rtol=SSD_TOL, atol=SSD_TOL)
