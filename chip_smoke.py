@@ -42,28 +42,44 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    model's serve, read after it) exactly one per layer of its kind per
    prefill batch (flash, SSD scan, RG-LRU scan) or per decode step (decode
    attention);
-6. partitions (``repro_torch.launch``): each of the paper's splits of the
-   card's SMs (green contexts) with its granted SMs, proven disjoint by the
-   ``%smid`` probe; the four kernels at their serving shapes on the
-   smallest partition (24 SMs), each launched on the whole card first,
-   against their plain versions, with their time there; the L(b, p) grid
+6. partitions (``repro_torch.launch``): each of the three carves of the
+   card's SMs (green contexts) that realise the paper's five splits, with
+   its granted SMs, proven disjoint by the ``%smid`` probe; the four
+   kernels at their serving shapes on the smallest partition (24 SMs),
+   each launched on the whole card first, against their plain versions,
+   with their time there; the L(b, p) grid
    (``launch/profile_partitions.py``: yi-9b, chatglm3-6b, mamba2-780m,
    recurrentgemma-2b, full width, bf16, a decode step at 1024 cached
    positions captured as a CUDA graph and replayed on each of the six
-   partition sizes at batches 1-32), written to
+   partition sizes at batches 1-32, each on the side of the carve it
+   names), written to
    ``results/out/h100_lbp.jsonl`` and printed as a table, with the decode
    kernel's launch count (set to 0 before the grid, read after it) exactly
-   one per attention layer per eager or captured step; the co-run factors
-   (mamba2-780m at batch 32 beside yi-9b at batch 8 on the 50/50 and 20/80
-   splits); and, from the grid just measured, Elastic Partitioning's and
-   SBP's largest schedulable multiple of the serving mix on 4 cards, and a
-   replay of the placement through the event engine that must conserve
-   every request.
+   one per attention layer per eager or captured step; the check that no
+   side of a split is priced from more SMs than it gets; and, from the
+   grid just measured, Elastic Partitioning's and SBP's largest
+   schedulable multiple of the serving mix on 4 cards, and a replay of the
+   placement through the event engine that must conserve every request;
+7. interference (``launch/profile_interference.py``, ``core/h100intf.py``):
+   the co-run factors of the six pairs of distinct served models on the
+   40/60 carve (56 + 76 SMs) at batch 8 on both sides, each beside the
+   committed table's (``results/h100_corun.jsonl``), with the decode
+   kernel's launch count (set to 0 before, read after) exactly one per
+   attention layer per warm-up or captured step; a factor under 0.95 or a
+   time that is not finite fails; mamba2-780m and yi-9b there beside
+   synthetic partners that each load one resource (kernel launches, HBM,
+   tensor cores: ``profile_interference.partner``); the solo features
+   (DRAM share) of this run's grid on the 40 and 60 sides beside the
+   committed ones; then, from the committed tables, the fitted predictor
+   (Fig. 9), the max scale of SBP, self-tuning, ``gpulet`` and
+   ``gpulet+int`` and the replays of both ``gpulet`` variants at 0.999 of
+   their maxima under the measured interference (``launch/serve.py``),
+   each of which must conserve its requests.
 
 The line before the last is the kernels' JSON record (one entry per kernel
-and served model, and one for the grid's decode launches; ``partition_ms``
-is a kernel's time on the smallest partition); the last line is
-``{"ok": true, "device": {...}}``.
+and served model, one for the grid's decode launches and one for the
+co-run's; ``partition_ms`` is a kernel's time on the smallest partition);
+the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits nonzero and prints no result.
 """
@@ -102,11 +118,13 @@ HEADS = {"yi-9b": (32, 4, 128, None), "recurrentgemma-2b": (10, 1, 256, 2048),
 # MoE model, which is not ported: arch -> rate weight
 MIX = {"yi-9b": 1.0, "chatglm3-6b": 1.0, "mamba2-780m": 4.0,
        "recurrentgemma-2b": 2.0}
-SPLITS = (20, 40, 50, 60, 80)  # left sides of the paper's splits
-# co-run pairs: (left %, model and batch on the left, on the right)
-CORUN = ((50, ("mamba2-780m", 32), ("yi-9b", 8)),
-         (20, ("mamba2-780m", 32), ("yi-9b", 8)))
-LBP_OUT = Path(__file__).resolve().parent / "results/out/h100_lbp.jsonl"
+ROOT = Path(__file__).resolve().parent
+LBP_OUT = ROOT / "results/out/h100_lbp.jsonl"
+# the committed tables the interference phase compares with and replays
+COMMITTED = {n: ROOT / f"results/h100_{n}.jsonl"
+             for n in ("lbp", "corun", "features")}
+CORUN_CARVE, CORUN_BATCH = 40, 8  # the co-run subset: 56 + 76 SMs, batch 8
+MIN_FACTOR = 0.95  # a co-run faster than solo by more than this is a fault
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
@@ -728,17 +746,22 @@ def phase_serve(records: dict):
 
 
 def splits_disjoint(part_mod, total: int):
-    """Each split of the card: two partitions whose probe SM sets are
-    disjoint, each of the count the CUDA driver granted, together the card."""
-    for left in SPLITS:
+    """Each carve of the card: two partitions whose probe SM sets are
+    disjoint, each of the count the CUDA driver granted, together the
+    card; the mirrored split is the same carve, sides swapped."""
+    from repro_torch.core.h100lets import CARVES
+    for left in CARVES:
         a, b = part_mod.split(left)
         ia, ib = part_mod.sm_ids(a), part_mod.sm_ids(b)
-        log(f"  split {left}/{100 - left}: {a.sms} + {b.sms} SMs granted, "
+        log(f"  carve {left}/{100 - left}: {a.sms} + {b.sms} SMs granted, "
             f"probe saw {len(ia)} + {len(ib)}, shared {len(ia & ib)}")
         if ia & ib or (len(ia), len(ib)) != (a.sms, b.sms) or \
                 a.sms + b.sms != total:
-            raise AssertionError(f"split {left}: SM sets not disjoint or "
+            raise AssertionError(f"carve {left}: SM sets not disjoint or "
                                  "not the granted counts")
+        if left != 50 and part_mod.split(100 - left) != (b, a):
+            raise AssertionError(f"split {100 - left} is not the mirror of "
+                                 f"carve {left}")
 
 
 def kernels_on_partition(part, records: dict, errs: dict):
@@ -913,34 +936,14 @@ def grid_launches(records) -> int:
                for r in records)
 
 
-def corun_phase(part_mod, pp):
-    """Co-run factors: each model's step with the other's in flight on
-    the other side of a split, over its solo step on the same side."""
-    models = {arch: pp.build(arch, device="cuda")
-              for arch in {m for _, a, b in CORUN for m in (a[0], b[0])}}
-    out = []
-    for left, (ma, ba), (mb, bb) in CORUN:
-        a, b = part_mod.split(left)
-        f = pp.corun(models[ma], ba, models[mb], bb, a, b)
-        log(f"  split {left}/{100 - left} ({a.sms} + {b.sms} SMs): {ma} b{ba}"
-            f" solo {f['solo_ms'][0]:.3f} ms, co-run {f['corun_ms'][0]:.3f} "
-            f"ms (x{f['factor'][0]:.3f}); {mb} b{bb} solo "
-            f"{f['solo_ms'][1]:.3f} ms, co-run {f['corun_ms'][1]:.3f} ms "
-            f"(x{f['factor'][1]:.3f})")
-        if not all(x > 0 and math.isfinite(x) for x in f["factor"]):
-            raise AssertionError("co-run factors not measured")
-        out.append((left, f))
-    del models
-    torch.cuda.empty_cache()
-    return out
-
-
 def phase_partitions(records: dict):
-    """SM partitions (green contexts): disjoint splits, the kernels on the
+    """SM partitions (green contexts): disjoint carves, the kernels on the
     smallest partition, the L(b, p) grid from CUDA-graph replays (the path
-    whose decode-attention launches are counted), co-run factors, and the
-    elastic / SBP plan and its replay from the grid just measured."""
-    from repro_torch.core.latency import PARTITION_SIZES
+    whose decode-attention launches are counted), the priced SMs of every
+    split's sides, and the elastic / SBP plan and its replay from the grid
+    just measured.  Returns the grid."""
+    from repro_torch.core.h100lets import granted_sms
+    from repro_torch.core.latency import PARTITION_SIZES, SPLIT_PAIRS
     from repro_torch.launch import partition as part_mod
     from repro_torch.launch import profile_partitions as pp
     from repro_torch.launch import serve
@@ -981,8 +984,16 @@ def phase_partitions(records: dict):
     records["decode_attention", "lbp-grid"] = dict(
         dec, path="lbp-grid", launches=counts["decode_attention"])
 
-    log("  co-run factors (CUDA events over 20 graph replays each)")
-    corun_phase(part_mod, pp)
+    # C.3: every side of every split priced from no more SMs than it gets
+    priced = {r["percent"]: r["sms"] for r in grid}
+    split_sms = {int(c): tuple(v) for c, v in grid[0]["split_sms"].items()}
+    for pair in SPLIT_PAIRS:
+        got = [granted_sms(split_sms, p, i) for i, p in enumerate(pair)]
+        log(f"  split {pair[0]}/{pair[1]}: runs on {got[0]} + {got[1]} SMs, "
+            f"priced from {priced[pair[0]]} + {priced[pair[1]]}")
+        if any(priced[p] > g for p, g in zip(pair, got)):
+            raise AssertionError(f"split {pair}: a side is priced from more "
+                                 "SMs than it gets")
 
     profiles, provider = serve.load_catalog(str(LBP_OUT))
     lam = serve.max_scales(profiles, provider, MIX, 4)
@@ -999,6 +1010,110 @@ def phase_partitions(records: dict):
     log("  replay " + json.dumps(rep))
     if not rep["conserved"] or rep["total"] == 0:
         raise AssertionError("the replay lost requests")
+    return grid
+
+
+def phase_interference(records: dict, grid: list):
+    """Co-run factors of the six pairs of distinct served models on the
+    40/60 carve at batch 8, beside the committed table; this run's solo
+    features on the 40 and 60 sides beside the committed ones; and, from
+    the committed tables, the fitted predictor, the four schedulers' max
+    scale and the two replays under measured interference."""
+    import contextlib
+    import io
+    from repro_torch.core.h100intf import (features_from_grid, load_corun,
+                                           load_features)
+    from repro_torch.core.interference import FEATURE_BATCH
+    from repro_torch.launch import profile_interference as pi
+    from repro_torch.launch import profile_partitions as pp
+    from repro_torch.launch import serve
+    from repro_torch.launch.partition import split
+
+    log(f"[7] interference: co-runs on the {CORUN_CARVE}/{100 - CORUN_CARVE}"
+        f" carve at batch {CORUN_BATCH}, against {COMMITTED['corun'].name}")
+    table = load_corun(str(COMMITTED["corun"]))
+    left, right = split(CORUN_CARVE)
+    pairs = [(a, b) for i, a in enumerate(MIX) for b in list(MIX)[i + 1:]]
+    mods = counters()
+    for m in mods.values():
+        m.launches = 0
+    models = {arch: pp.build(arch, device="cuda") for arch in MIX}
+    graphs = {}
+    for a, b in pairs:
+        for key, part in (((a, 0), left), ((b, 1), right)):
+            if key not in graphs:
+                graphs[key] = pp.captured(models[key[0]], CORUN_BATCH, part,
+                                          seed=key[1])
+        f = pp.corun(graphs[a, 0][0], left, graphs[b, 1][0], right)
+        was = table.cells[CORUN_CARVE, a, CORUN_BATCH, b,
+                          CORUN_BATCH]["factor"]
+        log(f"  {a} on {left.sms} SMs x{f['factor'][0]:.3f} (committed "
+            f"x{was[0]:.3f}) | {b} on {right.sms} SMs x{f['factor'][1]:.3f} "
+            f"(committed x{was[1]:.3f}); solo {f['solo_ms'][0]:.3f} / "
+            f"{f['solo_ms'][1]:.3f} ms, host launch {f['launch_ms']:.1f} of "
+            f"{max(f['span_ms']):.1f} ms")
+        times = f["solo_ms"] + f["corun_ms"]
+        if not all(t > 0 and math.isfinite(t) for t in times) or \
+                min(f["factor"]) < MIN_FACTOR:
+            raise AssertionError(f"co-run {a} | {b}: {f}")
+    counts = {k: m.launches for k, m in mods.items()}
+    # each capture: one eager warm-up step and the captured step
+    want = dict.fromkeys(KERNELS, 0)
+    want["decode_attention"] = 2 * sum(
+        sum(k in ("attn_mlp", "attn") for k in models[arch].cfg.layer_types())
+        for arch, _ in graphs)
+    log(f"  co-run launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError("the co-runs did not go through the decode "
+                             "kernel as their path says")
+    records["decode_attention", "corun-40/60"] = dict(
+        records["decode_attention", "yi-9b"], path="corun-40/60",
+        launches=counts["decode_attention"])
+    # which resource the steps contend for: each beside a synthetic partner
+    # on the other side that loads one resource only
+    for kind in pi.PARTNERS:
+        other, _keep = pi.partner(kind, right)
+        for arch in ("mamba2-780m", "yi-9b"):
+            f = pp.corun(graphs[arch, 0][0], left, other, right)
+            log(f"  {arch} b{CORUN_BATCH} on {left.sms} SMs beside "
+                f"'{kind}' on {right.sms}: x{f['factor'][0]:.3f} (solo "
+                f"{f['solo_ms'][0]:.3f} ms; the partner x"
+                f"{f['factor'][1]:.3f}, solo {f['solo_ms'][1]:.3f} ms)")
+            if not all(t > 0 and math.isfinite(t)
+                       for t in f["solo_ms"] + f["corun_ms"]):
+                raise AssertionError(f"co-run beside {kind}: {f}")
+        other.reset()
+        del other, _keep
+    for graph, _, _ in graphs.values():
+        graph.reset()
+    del graphs, models
+    torch.cuda.empty_cache()
+
+    committed = load_features(str(COMMITTED["features"]))
+    for r in features_from_grid(grid, (FEATURE_BATCH,), l2_reason=""):
+        if r["percent"] in (40, 60):
+            _, was = committed.at(r["arch"], r["percent"], FEATURE_BATCH)
+            log(f"  features {r['arch']} {r['percent']}% ({r['sms']} SMs) "
+                f"b{FEATURE_BATCH}: DRAM share {r['dram_share']:.4f} "
+                f"(committed {was:.4f})")
+            if not 0 < r["dram_share"] < 1.5:
+                raise AssertionError(f"DRAM share {r}")
+    log(f"  L2 share: {pi.L2_REASON}")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main([
+            "--results", str(COMMITTED["lbp"]), "--corun",
+            str(COMMITTED["corun"]), "--features",
+            str(COMMITTED["features"]), "--rates",
+            ",".join(f"{m}={r:g}" for m, r in MIX.items()), "--gpus", "4",
+            "--max-scale", "--replay"])
+    lines = out.getvalue().splitlines()
+    for line in lines[:-1]:
+        log("  " + line)
+    replays = json.loads(lines[-1])["replays"]
+    if rc or not all(r["conserved"] for r in replays.values()):
+        raise AssertionError(f"a replay lost requests: {replays}")
 
 
 def main() -> int:
@@ -1013,7 +1128,8 @@ def main() -> int:
     records = phase_kernels()
     phase_parity()
     phase_serve(records)
-    phase_partitions(records)
+    grid = phase_partitions(records)
+    phase_interference(records, grid)
     log(f"total {time.perf_counter() - t0:.1f} s")
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

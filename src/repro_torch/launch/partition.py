@@ -11,10 +11,15 @@ one process and need no daemon (MPS and MIG are the alternatives named in
     ``left`` percent and the remainder (``csrc/partition_probe.cu``,
     ``partition_split``), so the two are disjoint; the CUDA driver grants
     SMs in groups (8 on the H100) and every ``Partition`` carries the
-    count it granted;
-  * ``partition(percent)`` is one gpu-let of that size (the left side of a
-    split); 100 is the whole card: the primary context and a stream of its
-    own, no green context;
+    count it granted.  A left side above 50 is the mirror of
+    ``split(100 - left)``: the same carve, sides swapped.  So the paper's
+    five splits are three carves (``core.h100lets.CARVES``: 24 + 108,
+    56 + 76 and 64 + 68 SMs on the H100), and each percent runs on one SM
+    count (20 on 24, 40 on 56, 60 on 76, 80 on 108; 50 on 64 or 68);
+  * ``partition(percent)`` is one gpu-let of that size: the side of the
+    carve that ``percent`` names (50 the left, smaller side); 100 is the
+    whole card: the primary context and a stream of its own, no green
+    context;
   * ``with part:`` makes the partition's context current on the calling
     thread and its stream PyTorch's current stream, and tells the kernels
     (``kernels._build.partition``) how many SMs they run on.  Every launch
@@ -41,6 +46,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.h100lets import carve_of
 from repro_torch.kernels import _build
 
 GRANULE = 8  # SMs the CUDA driver grants an H100 green context at a time
@@ -85,11 +91,14 @@ def target_sms(percent: float, total: int) -> int:
 
 class Partition:
     """One gpu-let: a set of SMs of card ``device``, a context that owns
-    them and a stream in that context."""
+    them and a stream in that context; ``carve`` and ``side`` name the
+    carve of the SMs it is a side of (``core.h100lets.carve_of``)."""
 
     def __init__(self, percent: int, sms: int, device: int, stream,
-                 ctx: int | None = None):
+                 ctx: int | None = None, carve: int = 100,
+                 side: str = "whole"):
         self.percent, self.sms, self.device = percent, sms, device
+        self.carve, self.side = carve, side
         self.stream = stream
         self._ctx = ctx
         self._stack: list = []
@@ -142,7 +151,12 @@ def _require_card(device: int):
 def split(left: float, device: int = 0) -> tuple[Partition, Partition]:
     """Two disjoint partitions of card ``device``: about ``left`` percent
     of its SMs and the rest.  Their ``percent`` is the paper's name of the
-    split (``left``, ``100 - left``); ``sms`` what the driver granted."""
+    split (``left``, ``100 - left``); ``sms`` what the driver granted.  A
+    ``left`` above 50 returns the pair of ``split(100 - left)`` swapped,
+    so both share one carve and its green contexts."""
+    if left > 50:
+        right_side, left_side = split(100 - left, device)
+        return left_side, right_side
     total = _require_card(device)
     key = (device, target_sms(left, total))
     pair = _splits.get(key)
@@ -159,19 +173,27 @@ def split(left: float, device: int = 0) -> tuple[Partition, Partition]:
         pair = _splits[key] = tuple(Partition(
             p, sms[i], device,
             torch.cuda.ExternalStream(streams[i], device=torch.device(
-                "cuda", device)), ctx[i])
-            for i, p in enumerate((left, 100 - left)))
+                "cuda", device)), ctx[i], carve=left, side=side)
+            for i, (p, side) in enumerate(((left, "left"),
+                                           (100 - left, "right"))))
     return pair
 
 
 def partition(percent: int, device: int = 0) -> Partition:
-    """One gpu-let of ``percent`` of card ``device``'s SMs; 100 is the
+    """One gpu-let of ``percent`` of card ``device``'s SMs: the side of the
+    carve that ``percent`` names (``core.h100lets.carve_of``); 100 is the
     whole card (the primary context, a stream of its own)."""
     if percent == 100:
         total = _require_card(device)
         return Partition(100, total, device,
                          torch.cuda.Stream(device=device))
-    return split(percent, device)[0]
+    carve, side = carve_of(percent)
+    return split(carve, device)[side == "right"]
+
+
+def split_sms(carves, device: int = 0) -> dict[int, tuple[int, int]]:
+    """The (left, right) SMs the driver granted each carve in ``carves``."""
+    return {c: tuple(p.sms for p in split(c, device)) for c in carves}
 
 
 def sm_ids(part: Partition, blocks: int | None = None,
@@ -196,4 +218,4 @@ def sm_ids(part: Partition, blocks: int | None = None,
 
 
 __all__ = ["GRANULE", "Partition", "partition", "sm_ids", "split",
-           "target_sms"]
+           "split_sms", "target_sms"]

@@ -29,20 +29,26 @@ takes the decode step) on a partition of p% of the card's SMs
     time, and a partition that cannot be made raises too.
 
 One JSON line per (arch, percent, batch): ``card`` and ``power_limit_w``
-(``nvidia-smi``), ``arch``, ``percent``, ``sms`` (granted), ``batch``,
-``ctx``, ``step_ms`` with ``runs`` and ``run_ms``, ``eager_wall_ms``, and the
-torch and CUDA versions.
+(``nvidia-smi``), ``arch``, ``percent``, ``sms`` (granted), the ``carve``
+and ``side`` it ran on and every carve's granted (left, right) SMs
+(``split_sms``; ``core.h100lets.carve_of``: 60% is the right side of the
+40/60 carve, so each percent runs on one SM count), ``batch``, ``ctx``,
+the step's bytes (``weight_bytes``, ``bytes_per_req``:
+``core.h100intf.step_bytes``), ``step_ms`` with ``runs`` and ``run_ms``,
+``eager_wall_ms``, and the torch and CUDA versions.
 
 ``--smoke --device cpu`` writes the same records for the smoke configs
 with every partition stubbed to the whole CPU and no graph: ``step_ms`` is
 null there ("not measured"; a CPU run gives no device time) and
-``eager_wall_ms`` is the host's.  ``corun`` measures two captured steps in
-flight at once on the two sides of a split (the co-run factors).
+``eager_wall_ms`` is the host's.  ``corun`` measures two captured
+steps in flight at once on the two sides of a split (the co-run factors;
+``launch/profile_interference.py`` runs the grid of them).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,6 +58,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.h100intf import step_bytes
+from repro_torch.core.h100lets import CARVES, carve_of
 from repro_torch.core.latency import PARTITION_SIZES
 from repro_torch.models.model import Model
 
@@ -104,6 +112,7 @@ class _WholeCPU:
 
     def __init__(self, percent: int):
         self.percent, self.sms = percent, None
+        self.carve, self.side = carve_of(percent)
 
     def __enter__(self):
         return self
@@ -167,10 +176,11 @@ def replay_ms(graph, part, runs: int = RUNS,
 
 def measure(model: Model, arch: str, batches, parts, *, seed: int,
             device, ident: tuple[str, float | None],
-            log=print) -> list[dict]:
+            split_sms: dict | None = None, log=print) -> list[dict]:
     """The (percent, batch) cells of one arch: one record each."""
     records = []
     versions = {"torch": torch.__version__, "cuda": torch.version.cuda}
+    nbytes = step_bytes(model.cfg, 1, CTX)
     for batch in batches:
         with torch.inference_mode():
             cache, tokens = filled_cache(model, batch, seed)
@@ -185,8 +195,12 @@ def measure(model: Model, arch: str, batches, parts, *, seed: int,
                     del graph
             rec = {"card": ident[0], "power_limit_w": ident[1],
                    "arch": arch, "percent": part.percent, "sms": part.sms,
-                   "batch": batch, "ctx": CTX, "cache_slots": SLOTS,
-                   "layers": model.cfg.n_layers, "dtype": "bfloat16",
+                   "carve": part.carve, "side": part.side,
+                   "split_sms": split_sms, "batch": batch, "ctx": CTX,
+                   "cache_slots": SLOTS, "layers": model.cfg.n_layers,
+                   "dtype": "bfloat16",
+                   "weight_bytes": nbytes["weights"],
+                   "bytes_per_req": nbytes["per_request"],
                    "step_ms": (statistics.median(run_ms) if run_ms
                                else None),
                    "step_source": ("cuda-graph replay, median" if run_ms
@@ -206,11 +220,14 @@ def measure(model: Model, arch: str, batches, parts, *, seed: int,
 
 
 def make_partitions(percents, device):
-    """One partition per size; on the CPU the whole CPU, stubbed."""
+    """One partition per size, and every carve's granted (left, right)
+    SMs; on the CPU the whole CPU, stubbed, and no SM counts."""
     if device.type != "cuda":
-        return [_WholeCPU(p) for p in percents]
-    from repro_torch.launch.partition import partition
-    return [partition(p, device.index or 0) for p in percents]
+        return [_WholeCPU(p) for p in percents], None
+    from repro_torch.launch.partition import partition, split_sms
+    index = device.index or 0
+    return ([partition(p, index) for p in percents],
+            {str(c): list(s) for c, s in split_sms(CARVES, index).items()})
 
 
 def profile(archs=ARCHS, batches=BATCHES, percents=PARTITION_SIZES, *,
@@ -225,12 +242,13 @@ def profile(archs=ARCHS, batches=BATCHES, percents=PARTITION_SIZES, *,
         ident = card_identity()
     else:
         ident = ("cpu", None)
-    parts = make_partitions(percents, device)
+    parts, grants = make_partitions(percents, device)
     records = []
     for arch in archs:
         model = build(arch, device=device, seed=seed, smoke=smoke)
         records += measure(model, arch, batches, parts, seed=seed,
-                           device=device, ident=ident, log=log)
+                           device=device, ident=ident, split_sms=grants,
+                           log=log)
         del model
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -264,54 +282,77 @@ def table(records) -> str:
     return "\n".join(lines)
 
 
-def corun(model_a: Model, batch_a: int, model_b: Model, batch_b: int,
-          part_a, part_b, *, seed: int = 0) -> dict:
-    """Each model's step time with the other's in flight on the other
+def captured(model: Model, batch: int, part, *, seed: int):
+    """A decode step at ``batch`` (a filled cache from ``seed``) captured
+    as a CUDA graph on ``part`` after one eager warm-up step there, and
+    replayed once.  Returns (graph, cache, tokens): the caller keeps the
+    cache and tokens, the graph's inputs, as long as the graph."""
+    with torch.inference_mode():
+        cache, tokens = filled_cache(model, batch, seed)
+    with part, torch.inference_mode():
+        model.decode_step(cache, tokens)
+        graph, _ = capture(model, cache, tokens, part)
+        graph.replay()
+    part.synchronize()
+    return graph, cache, tokens
+
+
+def _replays(graphs, parts, counts, extra, est
+             ) -> tuple[list[float], float, list[float]]:
+    """Replay ``graphs[i]`` ``counts[i]`` times back to back on
+    ``parts[i]`` between two CUDA events, then ``extra[i]`` times more
+    (load for the other side, untimed).  The host launches the sides in
+    turn, in the order of their expected start (``est[i]`` ms a replay),
+    so they run side by side.  Every partition is synchronised before the
+    first launch and after the last.  Returns (ms a timed replay, per side;
+    the host's ms to launch them all; each side's timed span in ms)."""
+    for part in parts:
+        part.synchronize()
+    t0 = time.perf_counter()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in graphs]
+    total = [c + e for c, e in zip(counts, extra)]
+    done = [0] * len(graphs)
+    while True:
+        left = [i for i in range(len(graphs)) if done[i] < total[i]]
+        if not left:
+            break
+        i = min(left, key=lambda j: done[j] * est[j])
+        with parts[i]:
+            if done[i] == 0:
+                events[i][0].record()
+            graphs[i].replay()
+            if done[i] == counts[i] - 1:
+                events[i][1].record()
+        done[i] += 1
+    launch_ms = (time.perf_counter() - t0) * 1e3
+    for part in parts:
+        part.synchronize()
+    spans = [start.elapsed_time(end) for start, end in events]
+    return [t / n for t, n in zip(spans, counts)], launch_ms, spans
+
+
+def corun(graph_a, part_a, graph_b, part_b) -> dict:
+    """Each captured step's time with the other's in flight on the other
     partition, over its solo time on the same partition.
 
-    Both steps are captured as graphs on their partitions; one host thread
-    launches them in turn on their two streams, ``CORUN_REPLAYS`` times
-    each, so the GIL is out of the way.  Times are the CUDA-event spans of
-    each partition's run over its replays."""
-    with torch.inference_mode():
-        cache_a, tok_a = filled_cache(model_a, batch_a, seed)
-        cache_b, tok_b = filled_cache(model_b, batch_b, seed + 1)
-    graphs = []
-    for model, cache, tok, part in ((model_a, cache_a, tok_a, part_a),
-                                    (model_b, cache_b, tok_b, part_b)):
-        with part, torch.inference_mode():
-            eager_wall_ms(model, cache, tok, part, runs=1)
-            graphs.append(capture(model, cache, tok, part)[0])
-            replay_ms(graphs[-1], part, runs=1)
-
-    def run(which) -> list[float]:
-        events = {i: (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True)) for i in which}
-        parts = (part_a, part_b)
-        for i in which:
-            with parts[i]:
-                events[i][0].record()
-        for _ in range(CORUN_REPLAYS):
-            for i in which:
-                with parts[i]:
-                    graphs[i].replay()
-        for i in which:
-            with parts[i]:
-                events[i][1].record()
-        for i in which:
-            parts[i].synchronize()
-        return [events[i][0].elapsed_time(events[i][1]) / CORUN_REPLAYS
-                for i in which]
-
-    solo_a, = run([0])
-    solo_b, = run([1])
-    both_a, both_b = run([0, 1])
-    for g in graphs:
-        g.reset()
-    del graphs, cache_a, cache_b
-    torch.cuda.empty_cache()
-    return {"solo_ms": [solo_a, solo_b], "corun_ms": [both_a, both_b],
-            "factor": [both_a / solo_a, both_b / solo_b]}
+    Solo: ``CORUN_REPLAYS`` replays alone.  Co-run: both sides replay for
+    about ``CORUN_REPLAYS`` of the slower one's solo steps (the faster one
+    more times), timed by CUDA events around each side's run, and each
+    then keeps replaying for half as long again untimed, so that neither
+    side's timed run ends beside an idle partner.  ``launch_ms`` is the
+    host's time to launch the co-run (timed and untimed replays): when it
+    is well under ``span_ms``, the sides never waited on the host."""
+    solo = [_replays([g], [p], [CORUN_REPLAYS], [0], [1.0])[0][0]
+            for g, p in ((graph_a, part_a), (graph_b, part_b))]
+    span = CORUN_REPLAYS * max(solo)
+    counts = [math.ceil(span / t) for t in solo]
+    extra = [math.ceil(0.5 * span / t) for t in solo]
+    both, launch_ms, spans = _replays([graph_a, graph_b], [part_a, part_b],
+                                      counts, extra, solo)
+    return {"solo_ms": solo, "corun_ms": both, "replays": counts,
+            "extra_replays": extra, "span_ms": spans, "launch_ms": launch_ms,
+            "factor": [c / t for c, t in zip(both, solo)]}
 
 
 def main(argv=None) -> int:

@@ -10,15 +10,31 @@ the paper's baseline) and their ratio, then plans at 99% of the elastic
 maximum.  It prints each model's SLO and L(32, 100%) and, per card, the
 split with each gpu-let's models, batch, duty cycle and estimated latency.
 
-``--replay`` serves the placement through the event engine: Poisson
-arrivals from ``--seed`` over ``--horizon-s`` seconds, interference off
-(the partitions' SMs are disjoint), at 60% of the elastic maximum with
-``--max-scale`` or at ``--rates`` as given.  It prints one JSON line and
-exits nonzero unless every request completed or was dropped.  The cluster
-is the scheduler's arithmetic over one card's measured table, so it needs
-no card, and everything here runs on the CPU:
+With the card's measured interference (``--corun`` and ``--features``,
+from ``launch/profile_interference.py``) it fits the paper's predictor
+and prints its error on a held-out split (Fig. 9;
+``core.h100intf.fit_measured``), and ``--max-scale`` reports four
+schedulers (Fig. 12): SBP, guided self-tuning (GSLICE), ``gpulet``
+(Elastic Partitioning) and ``gpulet+int`` (the same with the fitted
+predictor in its admission test), each beside SBP.
+
+``--replay`` serves the placement through the event engine
+(``simulator/h100engine.py``): Poisson arrivals from ``--seed`` over
+``--horizon-s`` seconds.  With ``--corun`` it replays ``gpulet`` and
+``gpulet+int``, each at 0.999 of its own maximum with ``--max-scale``
+(Fig. 13), with the measured co-run factors as the ground truth, and
+prints each one's violation rate, goodput and conservation.  A card's
+catalog (``--results``) without ``--corun`` replays only with
+``--no-interference``: Elastic Partitioning at 60% of its maximum,
+interference off.  The labelled synthetic table replays without
+interference.  It prints one JSON line last and exits nonzero unless
+every request of every replay completed or was dropped.  The cluster is
+the scheduler's arithmetic over one card's measured tables, so it needs no
+card, and everything here runs on the CPU:
 
   python -m repro_torch.launch.serve --results results/h100_lbp.jsonl \\
+      --corun results/h100_corun.jsonl \\
+      --features results/h100_features.jsonl \\
       --rates yi-9b=1,chatglm3-6b=1,mamba2-780m=4,recurrentgemma-2b=2 \\
       --gpus 4 --max-scale --replay
 
@@ -32,16 +48,23 @@ import json
 import sys
 
 from repro_torch.core.elastic import ElasticPartitioning
+from repro_torch.core.h100intf import (corun_summary, fit_measured,
+                                       load_corun, load_features)
 from repro_torch.core.h100lets import (SLO_BATCH, SYNTHETIC_MIX,
-                                       load_catalog, synthetic_catalog)
+                                       granted_sms, load_catalog,
+                                       synthetic_catalog)
 from repro_torch.core.hardware import H100_SXM, ClusterSpec
 from repro_torch.core.sbp import SquishyBinPacking
+from repro_torch.core.selftuning import GuidedSelfTuning
 from repro_torch.launch.partition import target_sms
 
 CARD_SMS = 132  # an H100 SXM
 SEARCH_HI = 1 << 16
 PLAN_SHARE = 0.99     # of the elastic maximum, for the printed plan
-REPLAY_SHARE = 0.6    # of the elastic maximum, for the replay
+REPLAY_SHARE = 0.6    # of the elastic maximum, for the replay without a
+#                       co-run table
+AT_MAX_SHARE = 0.999  # of each scheduler's own maximum, for the replays
+#                       under measured interference (Fig. 13)
 
 
 def parse_rates(text: str) -> dict[str, float]:
@@ -65,41 +88,53 @@ def cluster_of(n_gpus: int) -> ClusterSpec:
     return ClusterSpec(accelerator=H100_SXM, n_devices=n_gpus)
 
 
-def max_scales(profiles, provider, rates, n_gpus: int) -> dict:
-    """The largest schedulable multiple of ``rates`` for each scheduler."""
+def max_scales(profiles, provider, rates, n_gpus: int,
+               intf_model=None) -> dict:
+    """The largest schedulable multiple of ``rates`` for each scheduler:
+    ``elastic`` (the paper's ``gpulet``), ``sbp``, ``self-tuning`` and,
+    with an interference model, ``gpulet+int``."""
+    schedulers = {"elastic": (ElasticPartitioning, None),
+                  "sbp": (SquishyBinPacking, None),
+                  "self-tuning": (GuidedSelfTuning, None)}
+    if intf_model is not None:
+        schedulers["gpulet+int"] = (ElasticPartitioning, intf_model)
     out = {}
-    for name, cls in (("elastic", ElasticPartitioning),
-                      ("sbp", SquishyBinPacking)):
+    for name, (cls, model) in schedulers.items():
         sched = cls({m: profiles[m] for m in rates}, cluster=cluster_of(
-            n_gpus), lat=provider)
+            n_gpus), lat=provider, intf_model=model)
         out[name] = sched.max_scale(rates, 0.0, SEARCH_HI)
     return out
 
 
-def plan(profiles, provider, rates, n_gpus: int):
+def plan(profiles, provider, rates, n_gpus: int, intf_model=None):
     sched = ElasticPartitioning({m: profiles[m] for m in rates},
-                                cluster=cluster_of(n_gpus), lat=provider)
+                                cluster=cluster_of(n_gpus), lat=provider,
+                                intf_model=intf_model)
     return sched.schedule(rates)
 
 
 def serve_end_to_end(profiles, provider, rates, *, n_gpus: int = 4,
-                     horizon_s: float = 20.0, seed: int = 0):
-    """Run an h100-let schedule through the event engine; returns (metrics,
+                     horizon_s: float = 20.0, seed: int = 0, corun=None,
+                     intf_model=None):
+    """Run an h100-let schedule (Elastic Partitioning, with
+    ``intf_model`` in its admission test if given) through the event
+    engine, with ``corun``'s measured co-run factors as the ground truth,
+    or without interference if there is no table; returns (metrics,
     schedule)."""
-    from repro_torch.simulator import (EngineConfig, EventHeapEngine,
-                                       PoissonArrivals)
+    from repro_torch.simulator import EngineConfig, PoissonArrivals
     from repro_torch.simulator.events import merge_sorted
-    result = plan(profiles, provider, rates, n_gpus)
+    from repro_torch.simulator.h100engine import MeasuredInterferenceEngine
+    result = plan(profiles, provider, rates, n_gpus, intf_model)
     horizon_ms = horizon_s * 1e3
     gen = PoissonArrivals(seed=seed)
     reqs = merge_sorted([
         gen.constant(m, r, profiles[m].slo_ms, horizon_ms)
         for m, r in rates.items()])
-    eng = EventHeapEngine(
+    eng = MeasuredInterferenceEngine(
         profiles,
         EngineConfig(horizon_ms=horizon_ms, acc=H100_SXM, lat=provider,
-                     interference=False),
-        schedule=result)
+                     interference=corun is not None),
+        schedule=result, corun=corun)
     eng.submit(reqs)
     return eng.run(), result
 
@@ -115,9 +150,11 @@ def replay_summary(met, result, rates) -> dict:
             "conserved": met.completed + met.dropped == met.total}
 
 
-def _sms(provider, percent: int) -> int:
-    return provider.sms.get(percent) or (
-        CARD_SMS if percent == 100 else target_sms(percent, CARD_SMS))
+def _sms(provider, percent: int, position: int) -> int:
+    """SMs the gpu-let at ``position`` on its card runs on."""
+    if provider.split_sms:
+        return granted_sms(provider.split_sms, percent, position)
+    return CARD_SMS if percent == 100 else target_sms(percent, CARD_SMS)
 
 
 def print_plan(result, provider, n_gpus: int):
@@ -125,8 +162,8 @@ def print_plan(result, provider, n_gpus: int):
     for gpu in result.gpus:
         split = "+".join(f"{let.size}%" for let in gpu.lets)
         parts = []
-        for let in gpu.lets:
-            where = f"{let.size}% = {_sms(provider, let.size)} SMs"
+        for position, let in enumerate(gpu.lets):
+            where = f"{let.size}% = {_sms(provider, let.size, position)} SMs"
             if let.is_free:
                 parts.append(f"[{where}: free]")
             else:
@@ -138,18 +175,66 @@ def print_plan(result, provider, n_gpus: int):
         print(f"  card {gpu.gpu_id} ({split}): " + " ".join(parts))
 
 
+def _rounded(medians: dict) -> dict:
+    return {k: round(v, 3) for k, v in medians.items()}
+
+
+def interference_tables(args, provider, rates):
+    """(co-run table, fitted predictor) from ``--corun`` and
+    ``--features``, or (None, None); refuses what the replay cannot use."""
+    if not (args.corun or args.features):
+        if args.results and args.replay and not args.no_interference:
+            raise SystemExit(
+                "a card's catalog replays with its measured interference: "
+                "give --corun and --features (launch/profile_interference."
+                "py), or --no-interference")
+        return None, None
+    if not (args.corun and args.features) or args.no_interference:
+        raise SystemExit("--corun and --features go together, without "
+                         "--no-interference")
+    corun, features = load_corun(args.corun), load_features(args.features)
+    cards = {provider.card, corun.card, features.card}
+    if len(cards) != 1:
+        raise SystemExit(f"the tables come from {len(cards)} cards: "
+                         f"{sorted(cards)}")
+    missing = sorted(set(rates) - (set(corun.archs) & set(features.archs)))
+    if missing:
+        raise SystemExit(f"{missing}: not in the co-run table and features")
+    dist = corun_summary(corun)
+    print(f"co-run factors (Fig. 6), {dist['sides']} sides: "
+          f"{dist['share_under_1.18'] * 100:.1f}% under x1.18, p10 "
+          f"x{dist['p10']:.3f}, median x{dist['median']:.3f}, p90 "
+          f"x{dist['p90']:.3f}, worst {json.dumps(dist['worst'])}; median "
+          f"by SMs {json.dumps(_rounded(dist['median_by_sms']))}, by arch "
+          f"and batch {json.dumps(_rounded(dist['median_by_arch_batch']))}")
+    model, stats = fit_measured(corun, features)
+    print(f"interference predictor (Fig. 9), fitted on {stats['n_train']} "
+          f"co-run sides, held out {stats['n_val']}: p90 rel. err "
+          f"{stats['p90_rel_err']:.4f}, p95 {stats['p95_rel_err']:.4f}, "
+          f"mean {stats['mean_rel_err']:.4f}, train RMS "
+          f"{stats['rms_train']:.4f}; coefficients (l2 self, l2 other, dram "
+          f"self, dram other, 1) {[round(float(c), 4) for c in model.coef]}")
+    return corun, model
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--results", default=None,
                     help="L(b, p) JSONL from profile_partitions (default: "
                          "the synthetic table)")
+    ap.add_argument("--corun", default=None,
+                    help="co-run JSONL from profile_interference")
+    ap.add_argument("--features", default=None,
+                    help="solo features JSONL from profile_interference")
+    ap.add_argument("--no-interference", action="store_true",
+                    help="replay a card's catalog without interference")
     ap.add_argument("--rates", default=None,
                     help="comma list arch=req_per_s (default: the "
                          "synthetic mix)")
     ap.add_argument("--gpus", type=int, default=4)
     ap.add_argument("--max-scale", action="store_true",
                     help="report the max schedulable multiple of --rates "
-                         "for elastic and SBP")
+                         "for each scheduler")
     ap.add_argument("--replay", action="store_true",
                     help="serve the placement through the event engine")
     ap.add_argument("--horizon-s", type=float, default=20.0)
@@ -167,6 +252,7 @@ def main(argv=None) -> int:
 
     print(f"== h100-let serving plan: {args.gpus} card(s), {len(rates)} "
           f"model(s); L(b, p) from {source} ({provider.card}) ==")
+    corun, intf_model = interference_tables(args, provider, rates)
     for arch in rates:
         prof = profiles[arch]
         print(f"  {arch:<20} SLO={prof.slo_ms:8.3f} ms  "
@@ -181,9 +267,9 @@ def main(argv=None) -> int:
                           for p, r in provider.rate_curve(prof))
         print(f"  {arch:<20} {curve}  p_eff="
               f"{provider.max_efficient_partition(prof)}%")
-    summary = {}
+    summary, lam = {}, None
     if args.max_scale:
-        lam = max_scales(profiles, provider, rates, args.gpus)
+        lam = max_scales(profiles, provider, rates, args.gpus, intf_model)
         total = sum(rates.values())
         ratio = lam["elastic"] / lam["sbp"] if lam["sbp"] else None
         print(f"max schedulable scale: elastic {lam['elastic']:.3f}x "
@@ -192,26 +278,63 @@ def main(argv=None) -> int:
               f"elastic / SBP "
               f"{'n/a (SBP admits none)' if ratio is None else f'{ratio:.3f}'}"
               " (paper, 2080 Ti: 2.026)")
+        for name in ("self-tuning", "gpulet+int"):
+            if name in lam:
+                over = (f"{lam[name] / lam['sbp']:.3f}" if lam["sbp"]
+                        else "n/a")
+                print(f"max schedulable scale: {name} {lam[name]:.3f}x "
+                      f"({lam[name] * total:.1f} req/s), {name} / SBP "
+                      f"{over}")
         summary = {"elastic_max_scale": lam["elastic"],
-                   "sbp_max_scale": lam["sbp"], "elastic_over_sbp": ratio}
+                   "sbp_max_scale": lam["sbp"], "elastic_over_sbp": ratio,
+                   "selftuning_max_scale": lam["self-tuning"]}
+        if intf_model is not None:
+            summary["gpulet_int_max_scale"] = lam["gpulet+int"]
         plan_rates = {m: r * lam["elastic"] * PLAN_SHARE
                       for m, r in rates.items()}
-        replay_rates = {m: r * lam["elastic"] * REPLAY_SHARE
-                        for m, r in rates.items()}
     else:
-        plan_rates = replay_rates = rates
+        plan_rates = rates
     print_plan(plan(profiles, provider, plan_rates, args.gpus), provider,
                args.gpus)
     if not args.replay:
         return 0
-    met, result = serve_end_to_end(profiles, provider, replay_rates,
-                                   n_gpus=args.gpus,
-                                   horizon_s=args.horizon_s, seed=args.seed)
-    line = {"replay": replay_summary(met, result, replay_rates),
-            "horizon_s": args.horizon_s, "seed": args.seed,
-            "source": source, **summary}
-    print(json.dumps(line))
-    return 0 if line["replay"]["conserved"] and met.total > 0 else 1
+    if corun is None:
+        replay_rates = ({m: r * lam["elastic"] * REPLAY_SHARE
+                         for m, r in rates.items()} if lam else rates)
+        met, result = serve_end_to_end(
+            profiles, provider, replay_rates, n_gpus=args.gpus,
+            horizon_s=args.horizon_s, seed=args.seed)
+        line = {"replay": replay_summary(met, result, replay_rates),
+                "horizon_s": args.horizon_s, "seed": args.seed,
+                "source": source, **summary}
+        print(json.dumps(line))
+        return 0 if line["replay"]["conserved"] and met.total > 0 else 1
+    replays = {}
+    for name, model in (("gpulet", None), ("gpulet+int", intf_model)):
+        share = (AT_MAX_SHARE * lam["elastic" if model is None else name]
+                 if lam else 1.0)
+        replay_rates = {m: r * share for m, r in rates.items()}
+        met, result = serve_end_to_end(
+            profiles, provider, replay_rates, n_gpus=args.gpus,
+            horizon_s=args.horizon_s, seed=args.seed, corun=corun,
+            intf_model=model)
+        replays[name] = dict(replay_summary(met, result, replay_rates),
+                             scale=share)
+        rep = replays[name]
+        print(f"replay {name} at {share:.3f}x of the mix, measured "
+              f"interference: {rep['violation_rate'] * 100:.3f}% violations,"
+              f" goodput {rep['goodput_req_s']:.1f} req/s of "
+              f"{rep['offered_req_s']:.1f} offered, conserved "
+              f"{rep['conserved']}" + ("" if rep["offered_req_s"] else
+                                       " (the scheduler admits no load)"))
+    print(json.dumps({"replays": replays, "horizon_s": args.horizon_s,
+                      "seed": args.seed, "source": source,
+                      "corun": args.corun, "features": args.features,
+                      **summary}))
+    # a replay of offered load must serve some; one of none has nothing
+    return 0 if all(r["conserved"] and (r["total"] > 0
+                                        or not r["offered_req_s"])
+                    for r in replays.values()) else 1
 
 
 if __name__ == "__main__":

@@ -288,9 +288,16 @@ def test_split_partitions_are_disjoint(cuda, left):
     assert (len(ia), len(ib)) == (a.sms, b.sms)
     total = torch.cuda.get_device_properties(0).multi_processor_count
     assert a.sms + b.sms == total
-    assert a.sms % 8 == 0 and abs(a.sms - left / 100 * total) <= 8
-    # a split is made once and kept: the same pair again
+    # the driver grants the carve's side of the smaller percent in granules
+    # of 8; the other side is the rest of the card
+    granted = a if left <= 50 else b
+    assert granted.sms % 8 == 0
+    assert abs(granted.sms - min(left, 100 - left) / 100 * total) <= 8
+    # a split is made once and kept: the same pair again; a left side
+    # above 50 is the mirror of the carve of its right side
     assert split(left) == (a, b)
+    if left != 50:
+        assert split(100 - left) == (b, a)
 
 
 def _kernel_case(name, rng, device):

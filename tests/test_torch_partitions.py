@@ -16,8 +16,9 @@ import pytest
 
 pytest.importorskip("torch")
 
-from repro_torch.core.h100lets import (LBP_BATCHES, SYNTHETIC_TABLE,  # noqa: E402
-                                       MeasuredLatency, load_catalog,
+from repro_torch.core.h100lets import (CARVES, LBP_BATCHES,  # noqa: E402
+                                       SYNTHETIC_TABLE, MeasuredLatency,
+                                       carve_of, granted_sms, load_catalog,
                                        synthetic_catalog)
 from repro_torch.core.latency import PARTITION_SIZES, SPLIT_PAIRS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -29,7 +30,12 @@ from repro_torch.launch import serve  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 COMMITTED = ROOT / "results" / "h100_lbp.jsonl"
 MIX = "yi-9b=1,chatglm3-6b=1,mamba2-780m=4,recurrentgemma-2b=2"
-SMS = {20: 24, 40: 56, 50: 64, 60: 80, 80: 104, 100: 132}
+# each percent on the side of the carve it names: 60 is the right side of
+# the 40/60 carve, 80 of the 20/80 one, 50 the left (smaller) side
+SMS = {20: 24, 40: 56, 50: 64, 60: 76, 80: 108, 100: 132}
+SPLIT_SMS = {"20": [24, 108], "40": [56, 76], "50": [64, 68]}
+CARVE = {20: (20, "left"), 40: (40, "left"), 50: (50, "left"),
+         60: (40, "right"), 80: (20, "right"), 100: (100, "whole")}
 
 
 def _step(arch, percent, batch):
@@ -39,9 +45,12 @@ def _step(arch, percent, batch):
 
 
 def _records(archs=("a", "b"), batches=(1, 8, 32), card="NVIDIA H100 80GB "
-             "HBM3", power=700.0):
+             "HBM3", power=700.0, sms=SMS):
     return [{"card": card, "power_limit_w": power, "arch": a, "percent": p,
-             "sms": SMS[p], "batch": b, "ctx": 1024,
+             "sms": sms[p], "carve": CARVE[p][0], "side": CARVE[p][1],
+             "split_sms": SPLIT_SMS, "batch": b, "ctx": 1024,
+             "weight_bytes": {"a": 9_000_000_000, "b": 1_000_000_000}[a],
+             "bytes_per_req": {"a": 50_000_000, "b": 70_000_000}[a],
              "step_ms": _step(a, p, b), "runs": 10,
              "eager_wall_ms": 50.0} for a in archs
             for p in PARTITION_SIZES for b in batches]
@@ -60,8 +69,13 @@ def test_measured_catalog_lookups_and_slo(tmp_path):
     assert provider.split_pairs == SPLIT_PAIRS
     assert provider.batch_sizes == (1, 8, 32) and provider.max_batch == 32
     assert provider.sms == SMS
+    assert provider.split_sms == {20: (24, 108), 40: (56, 76), 50: (64, 68)}
     assert provider.card == "NVIDIA H100 80GB HBM3, 700.0 W"
     a = profiles["a"]
+    # the step's bytes from the file, no placeholders
+    assert (a.weight_mb, a.act_mb_per_req) == (9000.0, 50.0)
+    assert (profiles["b"].weight_mb, profiles["b"].act_mb_per_req) == (
+        1000.0, 70.0)
     assert provider.latency_ms(a, 8, 0.5) == _step("a", 50, 8)
     # a batch between measured sizes runs as the next one up
     assert provider.latency_ms(a, 5, 0.2) == _step("a", 20, 8)
@@ -99,6 +113,67 @@ def test_load_catalog_refuses_a_cell_measured_twice(tmp_path):
     recs = _records()
     with pytest.raises(ValueError, match="twice"):
         load_catalog(_write(tmp_path, recs + recs[:1]))
+
+
+def test_load_catalog_refuses_a_side_priced_from_more_sms(tmp_path):
+    """The rule before the carves: 60% measured as the left side of a
+    60/40 split (80 SMs) prices the right side of 40/60, which runs on
+    76."""
+    old = {**SMS, 60: 80, 80: 104}
+    with pytest.raises(ValueError, match="60% side of split .40, 60. runs "
+                       "on 76 SMs but is priced from 80"):
+        load_catalog(_write(tmp_path, _records(sms=old)))
+    # 50's larger side may not price it either
+    with pytest.raises(ValueError, match="50% side .* priced from 68"):
+        load_catalog(_write(tmp_path, _records(sms={**SMS, 50: 68})))
+
+
+def test_load_catalog_refuses_a_file_without_the_granted_splits(tmp_path):
+    recs = [dict(r, split_sms=None) for r in _records()]
+    with pytest.raises(ValueError, match="split_sms"):
+        load_catalog(_write(tmp_path, recs))
+    recs = _records()
+    recs[5] = dict(recs[5], split_sms={"20": [24, 108]})
+    with pytest.raises(ValueError, match="split_sms"):
+        load_catalog(_write(tmp_path, recs))
+
+
+def test_load_catalog_refuses_a_percent_on_two_sm_counts(tmp_path):
+    recs = _records()
+    recs[1] = dict(recs[1], sms=recs[1]["sms"] - 8)
+    with pytest.raises(ValueError, match="measured on"):
+        load_catalog(_write(tmp_path, recs))
+
+
+@pytest.mark.parametrize("percent,position,carve,side,sms", [
+    (20, 0, 20, "left", 24), (80, 1, 20, "right", 108),
+    (80, 0, 20, "right", 108), (20, 1, 20, "left", 24),
+    (40, 0, 40, "left", 56), (60, 1, 40, "right", 76),
+    (60, 0, 40, "right", 76), (40, 1, 40, "left", 56),
+    (50, 0, 50, "left", 64), (50, 1, 50, "right", 68),
+    (100, 0, 100, "whole", 132)])
+def test_each_side_of_a_split_runs_on_its_carve(percent, position, carve,
+                                                side, sms):
+    split_sms = {int(c): tuple(v) for c, v in SPLIT_SMS.items()}
+    assert carve_of(percent, position) == (carve, side)
+    assert granted_sms(split_sms, percent, position) == sms
+    assert carve in CARVES or carve == 100
+
+
+def test_serve_prints_the_sms_each_side_runs_on(tmp_path, capsys):
+    from repro_torch.core.gpulet import GpuLet, GpuState
+    from repro_torch.core.scheduler_base import ScheduleResult
+    _, provider = load_catalog(_write(tmp_path, _records()))
+    gpus = [GpuState(0, [GpuLet(0, 60), GpuLet(0, 40)]),
+            GpuState(1, [GpuLet(1, 50), GpuLet(1, 50)]),
+            GpuState(2, [GpuLet(2, 100)])]
+    serve.print_plan(ScheduleResult(gpus=gpus, schedulable=True,
+                                    unplaced={}, scheduler="gpulet"),
+                     provider, 3)
+    out = capsys.readouterr().out
+    assert "[60% = 76 SMs: free] [40% = 56 SMs: free]" in out
+    assert "[50% = 64 SMs: free] [50% = 68 SMs: free]" in out
+    assert "[100% = 132 SMs: free]" in out
 
 
 def test_synthetic_catalog_shapes():
@@ -146,7 +221,7 @@ def test_serve_cli_plan_max_scale_and_replay(tmp_path):
     path = _write(tmp_path, _records())
     rc, lines = _main_lines(["--results", path, "--rates", "a=1,b=2",
                              "--gpus", "2", "--max-scale", "--replay",
-                             "--horizon-s", "2"])
+                             "--no-interference", "--horizon-s", "2"])
     assert rc == 0
     assert any(line.startswith("max schedulable scale: elastic")
                for line in lines)
@@ -172,8 +247,11 @@ def test_serve_cli_refuses_an_unknown_arch(tmp_path):
 
 def test_serve_from_the_committed_h100_catalog():
     """The measured file in the repo: every cell of the four archs x six
-    partitions x six batches from one card, and the serving plan and its
-    replay run from it on the CPU."""
+    partitions x six batches from one card, each measured on the side of
+    the carve its percent names, with the carves' granted SMs and the
+    step's bytes; and the serving plan and its replay without interference
+    run from it on the CPU (``tests/test_torch_interference.py`` replays
+    it with the measured interference)."""
     lines = COMMITTED.read_text().splitlines()
     recs = [json.loads(line) for line in lines]
     cells = {(r["arch"], r["percent"], r["batch"]) for r in recs}
@@ -181,12 +259,20 @@ def test_serve_from_the_committed_h100_catalog():
     assert cells == {(a, p, b) for a in archs for p in PARTITION_SIZES
                      for b in LBP_BATCHES}
     assert len(recs) == len(cells)
+    split_sms = {int(c): tuple(v) for c, v in recs[0]["split_sms"].items()}
+    assert set(split_sms) == set(CARVES)
     for r in recs:
         assert r["step_source"] == "cuda-graph replay, median"
         assert r["runs"] >= 10 and r["step_ms"] > 0
         assert r["eager_wall_ms"] > 0 and r["sms"] > 0
+        assert (r["carve"], r["side"]) == CARVE[r["percent"]]
+        assert r["sms"] == granted_sms(split_sms, r["percent"])
+        assert {int(c): tuple(v) for c, v in r["split_sms"].items()} == \
+            split_sms
+        assert r["weight_bytes"] > 0 and r["bytes_per_req"] > 0
     rc, out = _main_lines(["--results", str(COMMITTED), "--rates", MIX,
-                           "--gpus", "4", "--max-scale", "--replay"])
+                           "--gpus", "4", "--max-scale", "--replay",
+                           "--no-interference"])
     assert rc == 0
     rep = json.loads(out[-1])["replay"]
     assert rep["completed"] + rep["dropped"] == rep["total"] > 0
@@ -242,8 +328,9 @@ def test_partitions_raise_without_a_card():
         tpart.split(50)
 
 
-KEYS = {"card", "power_limit_w", "arch", "percent", "sms", "batch", "ctx",
-        "cache_slots", "layers", "dtype", "step_ms", "step_source", "runs",
+KEYS = {"card", "power_limit_w", "arch", "percent", "sms", "carve", "side",
+        "split_sms", "batch", "ctx", "cache_slots", "layers", "dtype",
+        "weight_bytes", "bytes_per_req", "step_ms", "step_source", "runs",
         "run_ms", "eager_wall_ms", "eager_runs", "torch", "cuda"}
 
 
@@ -266,6 +353,10 @@ def test_profile_partitions_record_schema_on_cpu(tmp_path):
         assert r["step_ms"] is None and r["runs"] == 0
         assert r["step_source"].startswith("not measured")
         assert r["eager_wall_ms"] > 0 and r["layers"] == 2
+        assert (r["carve"], r["side"]) == CARVE[r["percent"]]
+        # no granted SM counts off the card
+        assert r["sms"] is None and r["split_sms"] is None
+        assert r["weight_bytes"] > 0 and r["bytes_per_req"] > 0
     assert "yi-9b b1" in buf.getvalue()
 
 

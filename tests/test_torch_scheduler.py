@@ -59,6 +59,12 @@ SCHEDULERS = {
                                                       intf_model=TINTF)),
     "sbp": (lambda: jcore.SquishyBinPacking(JPROFS),
             lambda: tcore.SquishyBinPacking(TPROFS)),
+    "self-tuning": (lambda: jcore.GuidedSelfTuning(JPROFS),
+                    lambda: tcore.GuidedSelfTuning(TPROFS)),
+    "self-tuning+int": (lambda: jcore.GuidedSelfTuning(JPROFS,
+                                                       intf_model=JINTF),
+                        lambda: tcore.GuidedSelfTuning(TPROFS,
+                                                       intf_model=TINTF)),
 }
 PAPER_RATES = {"le": 300.0, "goo": 200.0, "res": 150.0, "ssd": 60.0,
                "vgg": 80.0}
@@ -168,6 +174,21 @@ def test_event_engine_run_identical():
     for f in dataclasses.fields(jm):
         assert getattr(jm, f.name) == getattr(tm, f.name), f.name
     assert jreq == treq
+
+
+#: modules copied byte for byte apart from their imports
+COPIES = ("core/profiles.py", "core/latency.py", "core/gpulet.py",
+          "core/interference.py", "core/scheduler_base.py", "core/elastic.py",
+          "core/sbp.py", "core/selftuning.py", "simulator/events.py",
+          "simulator/metrics.py")
+_IMPORT = re.compile(r"^(\s*)(from|import) repro\b", re.M)
+
+
+@pytest.mark.parametrize("path", COPIES)
+def test_copies_are_identical_apart_from_imports(path):
+    original = (PORT.parent / "repro" / path).read_text()
+    assert (PORT / path).read_text() == _IMPORT.sub(
+        r"\1\2 repro_torch", original)
 
 
 def test_cluster_spec_names_match():
