@@ -22,6 +22,7 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    1000, 512 and the chunk edges 1, 63, 64, 65, with and without an
    initial state, B / C as slices of one projection) and the RG-LRU scan
    (the same, and S 4096);
+   and deepseek-moe-16b's (16 query and 16 KV heads);
    then times on the card (CUDA events, inputs rotated past the 50 MB L2)
    of each kernel, its plain version and, for attention, one PyTorch call
    as a yardstick (SDPA, never used by the port), beside the least time
@@ -30,13 +31,17 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    decode kernel's time by cache splits (the sweep behind ``split_plan``);
 4. model parity, fp32, one seed, the card (CUDA kernels) against the same
    weights on the CPU (plain versions), prefill logits and three decode
-   steps, at full width: yi-9b, stablelm-12b, chatglm3-6b and
-   mamba2-780m (2 layers) and recurrentgemma-2b (3 layers, one (rglru,
-   rglru, attn) unit; also one 2100-token prompt, so that the 2048-slot
-   local ring wraps);
+   steps, at full width: yi-9b, stablelm-12b, chatglm3-6b, mamba2-780m
+   and deepseek-moe-16b (2 layers) and recurrentgemma-2b (3 layers, one
+   (rglru, rglru, attn) unit; also one 2100-token prompt, so that the
+   2048-slot local ring wraps); for deepseek-moe-16b first the routing:
+   each token's top-k experts in every MoE layer on the card against the
+   CPU's, every differing decision printed with the CPU's probability gap
+   there, and a difference at a gap above ``ROUTING_GAP`` fails;
 5. serve: ``repro_torch.serving.executor`` on yi-9b, mamba2-780m,
-   recurrentgemma-2b, stablelm-12b and chatglm3-6b at full width (all
-   layers, bf16): 8 requests, batch 4, prompts of 512 and 1000 tokens, 32
+   recurrentgemma-2b, stablelm-12b, chatglm3-6b and deepseek-moe-16b at
+   full width (all layers, bf16): 8 requests, batch 4, prompts of 512 and
+   1000 tokens, 32
    output tokens each; every request answered with in-vocab tokens, all
    logits finite, and each kernel's launch count (set to 0 before each
    model's serve, read after it) exactly one per layer of its kind per
@@ -48,33 +53,41 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    kernels at their serving shapes on the smallest partition (24 SMs),
    each launched on the whole card first, against their plain versions,
    with their time there; the L(b, p) grid
-   (``launch/profile_partitions.py``: yi-9b, chatglm3-6b, mamba2-780m,
-   recurrentgemma-2b, full width, bf16, a decode step at 1024 cached
+   (``launch/profile_partitions.py``: the five models of the JAX
+   package's serving mix, ``core.h100lets.MIX``: yi-9b, chatglm3-6b,
+   mamba2-780m, deepseek-moe-16b, recurrentgemma-2b; full width, bf16, a
+   decode step at 1024 cached
    positions captured as a CUDA graph and replayed on each of the six
    partition sizes at batches 1-32, each on the side of the carve it
    names), written to
    ``results/out/h100_lbp.jsonl`` and printed as a table, with the decode
    kernel's launch count (set to 0 before the grid, read after it) exactly
-   one per attention layer per eager or captured step; the check that no
-   side of a split is priced from more SMs than it gets; and, from the
-   grid just measured, Elastic Partitioning's and SBP's largest
-   schedulable multiple of the serving mix on 4 cards, and a replay of the
+   one per attention (or MoE) layer per eager or captured step; the check
+   that no side of a split is priced from more SMs than it gets; and, from
+   the grid just measured, Elastic Partitioning's and SBP's largest
+   schedulable multiple of the mix on 4 cards, and a replay of the
    placement through the event engine that must conserve every request;
 7. interference (``launch/profile_interference.py``, ``core/h100intf.py``):
-   the co-run factors of the six pairs of distinct served models on the
-   40/60 carve (56 + 76 SMs) at batch 8 on both sides, each beside the
-   committed table's (``results/h100_corun.jsonl``), with the decode
-   kernel's launch count (set to 0 before, read after) exactly one per
-   attention layer per warm-up or captured step; a factor under 0.95 or a
-   time that is not finite fails; mamba2-780m and yi-9b there beside
-   synthetic partners that each load one resource (kernel launches, HBM,
-   tensor cores: ``profile_interference.partner``); the solo features
-   (DRAM share) of this run's grid on the 40 and 60 sides beside the
-   committed ones; then, from the committed tables, the fitted predictor
-   (Fig. 9), the max scale of SBP, self-tuning, ``gpulet`` and
-   ``gpulet+int`` and the replays of both ``gpulet`` variants at 0.999 of
-   their maxima under the measured interference (``launch/serve.py``),
-   each of which must conserve its requests.
+   the co-run factors of the ten pairs of distinct models of the mix on
+   the 40/60 carve (56 + 76 SMs) at batch 8 on both sides, at most two
+   models on the card at a time, each beside the committed table's
+   (``results/h100_corun.jsonl``), with the decode kernel's launch count
+   (set to 0 before, read after) exactly one per attention layer per
+   warm-up or captured step; a factor under 0.95 or a time that is not
+   finite fails; mamba2-780m and yi-9b there beside synthetic partners
+   that each load one resource (kernel launches, HBM, tensor cores:
+   ``profile_interference.partner``); the host's time to launch each of 20
+   replays of yi-9b's and deepseek-moe-16b's steps queued back to back
+   (``launch_queue``); the solo features (DRAM share) of
+   this run's grid on the 40 and 60 sides beside the committed ones; then,
+   from the committed tables, the fitted predictor (Fig. 9), the max scale
+   of SBP, self-tuning, ``gpulet``, ``gpulet+int``, ideal and the ideal's
+   enumeration alone (which must place some of the mix), the replays of
+   both ``gpulet`` variants at 0.999 of their maxima under the measured
+   interference, and the serving controller under the fluctuating rates of
+   the JAX package's example, at the example's share of the elastic
+   maximum (``launch/serve.py --fluctuate``, interference off), each of
+   which must conserve its requests.
 
 The line before the last is the kernels' JSON record (one entry per kernel
 and served model, one for the grid's decode launches and one for the
@@ -108,16 +121,16 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_BYTES = 50 * 2**20
 PARITY_REL = 1e-3  # model parity: max |card - cpu| <= 1e-3 * max |cpu|
+# routing parity: card and CPU may choose other experts for a token only
+# where the CPU's probabilities of the two are within this of each other
+ROUTING_GAP = 1e-5
 SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b", "stablelm-12b",
-          "chatglm3-6b")
+          "chatglm3-6b", "deepseek-moe-16b")
 # the attention head shapes served: (H, Hkv, Dh, window)
 HEADS = {"yi-9b": (32, 4, 128, None), "recurrentgemma-2b": (10, 1, 256, 2048),
          "stablelm-12b": (32, 8, 160, None),
-         "chatglm3-6b": (32, 2, 128, None)}
-# the JAX package's serving mix (benchmarks/tpulet_serving.py, MIX) less the
-# MoE model, which is not ported: arch -> rate weight
-MIX = {"yi-9b": 1.0, "chatglm3-6b": 1.0, "mamba2-780m": 4.0,
-       "recurrentgemma-2b": 2.0}
+         "chatglm3-6b": (32, 2, 128, None),
+         "deepseek-moe-16b": (16, 16, 128, None)}
 ROOT = Path(__file__).resolve().parent
 LBP_OUT = ROOT / "results/out/h100_lbp.jsonl"
 # the committed tables the interference phase compares with and replays
@@ -358,7 +371,8 @@ def kernels_attention(gen, errs):
                                          (1, 10, 1, 2100, 256, 2048),
                                          (2, 10, 1, 1000, 256, 128),
                                          (4, 32, 8, 1000, 160, None),
-                                         (2, 32, 8, 77, 160, None)]:
+                                         (2, 32, 8, 77, 160, None),
+                                         (4, 16, 16, 1000, 128, None)]:
             q, k, v = flash_inputs(b, h, hkv, s, dh, dtype)
             got = fl.flash_attention_cuda(q, k, v, causal=True, window=window)
             want = fl.flash_attention_torch(q, k, v, causal=True,
@@ -375,7 +389,8 @@ def kernels_attention(gen, errs):
                 (4, 10, 1, 1032, 256, 2048, [1032, 544, 1, 1000]),
                 (4, 32, 8, 1032, 160, None, [1, 516, 1032, 1001]),
                 (2, 32, 8, 77, 160, None, [77, 40]),
-                (4, 32, 2, 1032, 128, None, [1032, 1, 700, 1025])]:
+                (4, 32, 2, 1032, 128, None, [1032, 1, 700, 1025]),
+                (4, 16, 16, 1032, 128, None, [1032, 77, 1, 1026])]:
             q, kc, vc, lengths = decode_inputs(b, h, hkv, s, dh, lens, dtype)
             got = dec.decode_attention_cuda(q, kc, vc, lengths, window=window)
             want = dec.decode_attention_torch(q, kc, vc, lengths,
@@ -623,20 +638,72 @@ def counters() -> dict:
             "rglru_scan": rg}
 
 
+def n_attn(cfg) -> int:
+    """Layers with attention (an MoE layer has it before its experts)."""
+    from repro_torch.models.config import ATTN_KINDS
+    return sum(k in ATTN_KINDS for k in cfg.layer_types())
+
+
 def expected_launches(cfg, prefill_batches: int, decode_steps: int) -> dict:
     """One launch per layer of the kernel's kind per prefill batch (flash,
     the scans) or per decode step (decode attention)."""
     kinds = cfg.layer_types()
-    n_attn = sum(k in ("attn_mlp", "attn") for k in kinds)
-    return {"flash_attention": n_attn * prefill_batches,
-            "decode_attention": n_attn * decode_steps,
+    return {"flash_attention": n_attn(cfg) * prefill_batches,
+            "decode_attention": n_attn(cfg) * decode_steps,
             "ssd_scan": kinds.count("ssm") * prefill_batches,
             "rglru_scan": kinds.count("rglru") * prefill_batches}
 
 
+def moe_inputs(model) -> list:
+    """(layer, input) of every MoE layer call of ``model`` from now on."""
+    seen = []
+    for i, block in enumerate(model.layers):
+        if hasattr(block, "moe"):
+            block.moe.register_forward_hook(
+                lambda mod, args, out, i=i: seen.append((i, args[0])))
+    return seen
+
+
+def check_routing(arch, card, cpu, seen_card, seen_cpu):
+    """Each token's top-k experts, in order, in every MoE layer call: the
+    card's from its own layer inputs against the CPU's from its own.  Every
+    differing decision is printed with the CPU's probability gap between
+    the expert it ranked at the first differing slot and the next one; a
+    difference at a gap above ``ROUTING_GAP`` fails."""
+    from repro_torch.models.moe import route
+    k = cpu.cfg.top_k
+    decisions, gaps = 0, []
+    for (i, x_card), (j, x_cpu) in zip(seen_card, seen_cpu, strict=True):
+        assert i == j
+        d = x_cpu.shape[-1]
+        _, _, ids_card = route(card.layers[i].moe, x_card.reshape(-1, d),
+                               card.cfg)
+        probs, _, ids_cpu = route(cpu.layers[i].moe, x_cpu.reshape(-1, d),
+                                  cpu.cfg)
+        ranked = torch.topk(probs, k + 1, dim=-1).values
+        differ = ids_card.cpu() != ids_cpu
+        decisions += ids_cpu.shape[0]
+        for t in differ.any(-1).nonzero()[:, 0].tolist():
+            slot = int(differ[t].nonzero()[0, 0])
+            gap = float(ranked[t, slot] - ranked[t, slot + 1])
+            gaps.append(gap)
+            log(f"    routing differs: layer {i}, token {t}, slot {slot}: "
+                f"card {ids_card[t].tolist()} cpu {ids_cpu[t].tolist()}, "
+                f"CPU probability gap {gap:.3e}")
+    log(f"    routing: {decisions} top-{k} decisions (token x layer call), "
+        f"{len(gaps)} differ" + (f", largest gap {max(gaps):.3e}"
+                                 if gaps else ""))
+    if any(g > ROUTING_GAP for g in gaps):
+        raise AssertionError(f"{arch}: card and CPU route tokens to other "
+                             "experts where they are not near a tie")
+    seen_card.clear()
+    seen_cpu.clear()
+
+
 def parity(arch: str, n_layers: int, runs):
     """Card vs CPU, fp32, full width, ``n_layers`` layers.  ``runs``:
-    (batch, prompt length) pairs; each prefills and decodes 3 tokens."""
+    (batch, prompt length) pairs; each prefills and decodes 3 tokens.  An
+    MoE model's routing is compared first."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
@@ -645,6 +712,7 @@ def parity(arch: str, n_layers: int, runs):
     card.init(torch.Generator(device="cuda").manual_seed(0))
     cpu = Model(cfg, dtype=torch.float32, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    seen_card, seen_cpu = moe_inputs(card), moe_inputs(cpu)
     mods = counters()
     for b, s in runs:
         log(f"  {arch}, {n_layers} layers, B{b} prompt {s}:")
@@ -660,6 +728,8 @@ def parity(arch: str, n_layers: int, runs):
                 outs.append((card.decode_step(c_card,
                                               toks[:, i:i + 1].cuda()),
                              cpu.decode_step(c_cpu, toks[:, i:i + 1])))
+        if seen_cpu:
+            check_routing(arch, card, cpu, seen_card, seen_cpu)
         # fp32 on both sides (TF32 off); the sums over d_model and d_ff run
         # in another order on the card, so the bound is relative to the
         # logits' scale.
@@ -688,6 +758,7 @@ def phase_parity():
     parity("stablelm-12b", 2, [(2, 77)])
     parity("chatglm3-6b", 2, [(2, 77)])
     parity("mamba2-780m", 2, [(2, 77)])
+    parity("deepseek-moe-16b", 2, [(2, 77)])
     parity("recurrentgemma-2b", 3, [(2, 77), (1, 2100)])
 
 
@@ -931,9 +1002,7 @@ def grid_launches(records) -> int:
     from repro_torch.configs import get_config
     from repro_torch.launch import profile_partitions as pp
     steps = pp.EAGER_RUNS + 2
-    return sum(steps * sum(k in ("attn_mlp", "attn")
-                           for k in get_config(r["arch"]).layer_types())
-               for r in records)
+    return sum(steps * n_attn(get_config(r["arch"])) for r in records)
 
 
 def phase_partitions(records: dict):
@@ -942,7 +1011,7 @@ def phase_partitions(records: dict):
     whose decode-attention launches are counted), the priced SMs of every
     split's sides, and the elastic / SBP plan and its replay from the grid
     just measured.  Returns the grid."""
-    from repro_torch.core.h100lets import granted_sms
+    from repro_torch.core.h100lets import MIX, granted_sms
     from repro_torch.core.latency import PARTITION_SIZES, SPLIT_PAIRS
     from repro_torch.launch import partition as part_mod
     from repro_torch.launch import profile_partitions as pp
@@ -999,7 +1068,9 @@ def phase_partitions(records: dict):
     lam = serve.max_scales(profiles, provider, MIX, 4)
     ratio = lam["elastic"] / lam["sbp"] if lam["sbp"] else float("nan")
     log(f"  4 cards, mix {MIX}: max scale elastic {lam['elastic']:.3f}x, "
-        f"SBP {lam['sbp']:.3f}x, elastic / SBP {ratio:.3f}")
+        f"SBP {lam['sbp']:.3f}x, elastic / SBP {ratio:.3f}, self-tuning "
+        f"{lam['self-tuning']:.3f}x, ideal {lam['ideal']:.3f}x (its "
+        f"enumeration alone {lam['ideal (enumeration)']:.3f}x)")
     if not lam["elastic"] > 0:
         raise AssertionError("elastic partitioning admits no load")
     rates = {m: r * lam["elastic"] * serve.REPLAY_SHARE
@@ -1013,16 +1084,41 @@ def phase_partitions(records: dict):
     return grid
 
 
+def launch_queue(arch: str, graph, part, n: int = 20):
+    """Host ms each of ``n`` replays of ``graph`` queued back to back on
+    ``part`` takes to launch: a launch returns at once until the card's
+    queue of pending work is full, then waits for the card to finish a
+    step.  (A co-run's host launch time is that wait where it nears the
+    timed span.)"""
+    part.synchronize()
+    stamps = [time.perf_counter()]
+    with part:
+        for _ in range(n):
+            graph.replay()
+            stamps.append(time.perf_counter())
+        part.synchronize()
+    done = time.perf_counter()
+    gaps = ", ".join(f"{(b - a) * 1e3:.2f}"
+                     for a, b in zip(stamps, stamps[1:]))
+    log(f"  launch queue: {n} replays of {arch}'s step queued back to back "
+        f"on {part.sms} SMs, host ms a launch: {gaps}; all done in "
+        f"{(done - stamps[0]) * 1e3:.1f} ms")
+
+
 def phase_interference(records: dict, grid: list):
-    """Co-run factors of the six pairs of distinct served models on the
-    40/60 carve at batch 8, beside the committed table; this run's solo
+    """Co-run factors of the ten pairs of distinct models of the mix on the
+    40/60 carve at batch 8, beside the committed table, at most two models
+    on the card at a time (the mix weighs about 71 GB); this run's solo
     features on the 40 and 60 sides beside the committed ones; and, from
-    the committed tables, the fitted predictor, the four schedulers' max
-    scale and the two replays under measured interference."""
+    the committed tables, the fitted predictor, the five schedulers' max
+    scale, the two replays under measured interference and the controller
+    under fluctuating rates."""
     import contextlib
     import io
+    from repro_torch.configs import get_config
     from repro_torch.core.h100intf import (features_from_grid, load_corun,
                                            load_features)
+    from repro_torch.core.h100lets import MIX
     from repro_torch.core.interference import FEATURE_BATCH
     from repro_torch.launch import profile_interference as pi
     from repro_torch.launch import profile_partitions as pp
@@ -1033,35 +1129,60 @@ def phase_interference(records: dict, grid: list):
         f" carve at batch {CORUN_BATCH}, against {COMMITTED['corun'].name}")
     table = load_corun(str(COMMITTED["corun"]))
     left, right = split(CORUN_CARVE)
-    pairs = [(a, b) for i, a in enumerate(MIX) for b in list(MIX)[i + 1:]]
+    archs = list(MIX)
     mods = counters()
     for m in mods.values():
         m.launches = 0
-    models = {arch: pp.build(arch, device="cuda") for arch in MIX}
-    graphs = {}
-    for a, b in pairs:
-        for key, part in (((a, 0), left), ((b, 1), right)):
-            if key not in graphs:
-                graphs[key] = pp.captured(models[key[0]], CORUN_BATCH, part,
-                                          seed=key[1])
-        f = pp.corun(graphs[a, 0][0], left, graphs[b, 1][0], right)
-        was = table.cells[CORUN_CARVE, a, CORUN_BATCH, b,
-                          CORUN_BATCH]["factor"]
-        log(f"  {a} on {left.sms} SMs x{f['factor'][0]:.3f} (committed "
-            f"x{was[0]:.3f}) | {b} on {right.sms} SMs x{f['factor'][1]:.3f} "
-            f"(committed x{was[1]:.3f}); solo {f['solo_ms'][0]:.3f} / "
-            f"{f['solo_ms'][1]:.3f} ms, host launch {f['launch_ms']:.1f} of "
-            f"{max(f['span_ms']):.1f} ms")
-        times = f["solo_ms"] + f["corun_ms"]
-        if not all(t > 0 and math.isfinite(t) for t in times) or \
-                min(f["factor"]) < MIN_FACTOR:
-            raise AssertionError(f"co-run {a} | {b}: {f}")
+    captured = []  # the arch of each capture: a warm-up and a captured step
+
+    def capture(arch, part, seed):
+        model = pp.build(arch, device="cuda")
+        captured.append(arch)
+        return model, pp.captured(model, CORUN_BATCH, part, seed=seed)
+
+    # every arch but the last is a left side once; mamba2-780m and yi-9b also
+    # beside synthetic partners that each load one resource only
+    for i, a in enumerate(archs[:-1]):
+        model_a, graph_a = capture(a, left, 0)
+        if a in ("yi-9b", "deepseek-moe-16b"):
+            launch_queue(a, graph_a[0], left)
+        for b in archs[i + 1:]:
+            model_b, graph_b = capture(b, right, 1)
+            f = pp.corun(graph_a[0], left, graph_b[0], right)
+            was = table.cells[CORUN_CARVE, a, CORUN_BATCH, b,
+                              CORUN_BATCH]["factor"]
+            log(f"  {a} on {left.sms} SMs x{f['factor'][0]:.3f} (committed "
+                f"x{was[0]:.3f}) | {b} on {right.sms} SMs "
+                f"x{f['factor'][1]:.3f} (committed x{was[1]:.3f}); solo "
+                f"{f['solo_ms'][0]:.3f} / {f['solo_ms'][1]:.3f} ms, host "
+                f"launch {f['launch_ms']:.1f} of {max(f['span_ms']):.1f} ms")
+            times = f["solo_ms"] + f["corun_ms"]
+            if not all(t > 0 and math.isfinite(t) for t in times) or \
+                    min(f["factor"]) < MIN_FACTOR:
+                raise AssertionError(f"co-run {a} | {b}: {f}")
+            graph_b[0].reset()
+            del model_b, graph_b
+            torch.cuda.empty_cache()
+        if a in ("mamba2-780m", "yi-9b"):
+            for kind in pi.PARTNERS:
+                other, _keep = pi.partner(kind, right)
+                f = pp.corun(graph_a[0], left, other, right)
+                log(f"  {a} b{CORUN_BATCH} on {left.sms} SMs beside "
+                    f"'{kind}' on {right.sms}: x{f['factor'][0]:.3f} (solo "
+                    f"{f['solo_ms'][0]:.3f} ms; the partner x"
+                    f"{f['factor'][1]:.3f}, solo {f['solo_ms'][1]:.3f} ms)")
+                if not all(t > 0 and math.isfinite(t)
+                           for t in f["solo_ms"] + f["corun_ms"]):
+                    raise AssertionError(f"co-run beside {kind}: {f}")
+                other.reset()
+                del other, _keep
+        graph_a[0].reset()
+        del model_a, graph_a
+        torch.cuda.empty_cache()
     counts = {k: m.launches for k, m in mods.items()}
-    # each capture: one eager warm-up step and the captured step
     want = dict.fromkeys(KERNELS, 0)
-    want["decode_attention"] = 2 * sum(
-        sum(k in ("attn_mlp", "attn") for k in models[arch].cfg.layer_types())
-        for arch, _ in graphs)
+    want["decode_attention"] = 2 * sum(n_attn(get_config(arch))
+                                       for arch in captured)
     log(f"  co-run launches {counts}, expected {want}")
     if counts != want:
         raise AssertionError("the co-runs did not go through the decode "
@@ -1069,25 +1190,6 @@ def phase_interference(records: dict, grid: list):
     records["decode_attention", "corun-40/60"] = dict(
         records["decode_attention", "yi-9b"], path="corun-40/60",
         launches=counts["decode_attention"])
-    # which resource the steps contend for: each beside a synthetic partner
-    # on the other side that loads one resource only
-    for kind in pi.PARTNERS:
-        other, _keep = pi.partner(kind, right)
-        for arch in ("mamba2-780m", "yi-9b"):
-            f = pp.corun(graphs[arch, 0][0], left, other, right)
-            log(f"  {arch} b{CORUN_BATCH} on {left.sms} SMs beside "
-                f"'{kind}' on {right.sms}: x{f['factor'][0]:.3f} (solo "
-                f"{f['solo_ms'][0]:.3f} ms; the partner x"
-                f"{f['factor'][1]:.3f}, solo {f['solo_ms'][1]:.3f} ms)")
-            if not all(t > 0 and math.isfinite(t)
-                       for t in f["solo_ms"] + f["corun_ms"]):
-                raise AssertionError(f"co-run beside {kind}: {f}")
-        other.reset()
-        del other, _keep
-    for graph, _, _ in graphs.values():
-        graph.reset()
-    del graphs, models
-    torch.cuda.empty_cache()
 
     committed = load_features(str(COMMITTED["features"]))
     for r in features_from_grid(grid, (FEATURE_BATCH,), l2_reason=""):
@@ -1105,15 +1207,17 @@ def phase_interference(records: dict, grid: list):
         rc = serve.main([
             "--results", str(COMMITTED["lbp"]), "--corun",
             str(COMMITTED["corun"]), "--features",
-            str(COMMITTED["features"]), "--rates",
-            ",".join(f"{m}={r:g}" for m, r in MIX.items()), "--gpus", "4",
-            "--max-scale", "--replay"])
+            str(COMMITTED["features"]), "--gpus", "4", "--max-scale",
+            "--replay", "--fluctuate"])
     lines = out.getvalue().splitlines()
     for line in lines[:-1]:
         log("  " + line)
-    replays = json.loads(lines[-1])["replays"]
-    if rc or not all(r["conserved"] for r in replays.values()):
-        raise AssertionError(f"a replay lost requests: {replays}")
+    result = json.loads(lines[-1])
+    if rc or not all(r["conserved"] for r in result["replays"].values()) \
+            or not result["fluctuate"]["conserved"]:
+        raise AssertionError(f"a replay lost requests: {result}")
+    if not result["ideal_enumerated_max_scale"] > 0:
+        raise AssertionError("no enumerated partitioning places the mix")
 
 
 def main() -> int:

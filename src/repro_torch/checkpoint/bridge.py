@@ -8,14 +8,14 @@ Two sources, both read without JAX (the machine with the card has none):
     the JAX package's ``checkpoint/store.py`` writes, where bf16 leaves are
     stored as uint16 views.
 
-JAX stacks the layers of a homogeneous stack (dense, SSM) along a leading
-``n_layers`` axis (its init is ``vmap``-ed); the bridge slices that axis
-per layer.  The hybrid's layers are a list of per-layer dicts, which a
+JAX stacks the layers of a homogeneous stack (dense, MoE, SSM) along a
+leading ``n_layers`` axis (its init is ``vmap``-ed); the bridge slices that
+axis per layer.  The hybrid's layers are a list of per-layer dicts, which a
 checkpoint stores under ``layers/<i>/...``; the bridge takes both forms.
 Every other layout is the same in both packages, so leaves copy without
 transposes, and bf16 bits arrive unchanged (through an int16 view; no
-``ml_dtypes`` needed).  Norms and the SSM / RG-LRU decay parameters stay
-fp32, as in JAX; everything else has the model dtype.
+``ml_dtypes`` needed).  Norms, the SSM / RG-LRU decay parameters and the
+MoE router stay fp32, as in JAX; everything else has the model dtype.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` returns a reduced variant of the same family
 (<=2 layers, d_model<=512, <=4 experts) for CPU smoke tests.  Both behave
-as the JAX package's ``configs`` do.  The dense, SSM and hybrid configs
-are ported; the others name the slice of the port that brings them.
+as the JAX package's ``configs`` do.  The dense, MoE, SSM and hybrid
+configs are ported; the others name the slice of the port that brings
+them.
 """
 from __future__ import annotations
 
@@ -26,8 +27,6 @@ ARCH_IDS = (
 
 # arch id -> the slice of the port that brings its config and model code
 NOT_YET_PORTED = {
-    "deepseek-moe-16b": "MoE",
-    "arctic-480b": "MoE",
     "internvl2-76b": "encoder/VLM",
     "hubert-xlarge": "encoder/VLM",
 }

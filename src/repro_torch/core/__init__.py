@@ -6,6 +6,7 @@ from repro_torch.core.elastic import ElasticPartitioning
 from repro_torch.core.gpulet import Assignment, GpuLet, GpuState, fresh_cluster
 from repro_torch.core.hardware import (H100_SXM, PAPER_CLUSTER, RTX_2080TI,
                                        AcceleratorSpec, ClusterSpec)
+from repro_torch.core.ideal import IdealScheduler
 from repro_torch.core.interference import InterferenceModel, fit_default_model
 from repro_torch.core.latency import Admission, LatencyProvider
 from repro_torch.core.profiles import (PAPER_MODELS, ModelProfile,
@@ -16,7 +17,7 @@ from repro_torch.core.selftuning import GuidedSelfTuning
 
 __all__ = ["AcceleratorSpec", "Admission", "Assignment", "ClusterSpec",
            "ElasticPartitioning", "GpuLet", "GpuState", "GuidedSelfTuning",
-           "H100_SXM", "InterferenceModel", "LatencyProvider", "ModelProfile",
+           "H100_SXM", "IdealScheduler", "InterferenceModel", "LatencyProvider", "ModelProfile",
            "PAPER_CLUSTER", "PAPER_MODELS", "RTX_2080TI", "ScheduleResult",
            "SchedulerBase", "SquishyBinPacking", "calibrate_profiles",
            "fit_default_model", "fresh_cluster"]

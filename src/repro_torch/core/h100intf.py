@@ -40,6 +40,7 @@ import numpy as np
 from repro_torch.core.h100lets import CARVES, carve_of
 from repro_torch.core.interference import FEATURE_BATCH, InterferenceModel
 from repro_torch.core.latency import PARTITION_SIZES
+from repro_torch.models.config import ATTN_KINDS
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 #: batches of each side in the co-run grid
@@ -53,14 +54,15 @@ FAST = 1.18  # Fig. 6: the paper's share of pairs below 18% overhead
 
 def param_count(cfg) -> tuple[int, int]:
     """(bf16 / model-dtype, fp32) parameter counts of the port's ``Model``
-    of ``cfg``: the norms, the SSM's ``a_log`` / ``dt_bias`` / ``d_skip``
-    and the RG-LRU's ``lam`` are fp32, everything else the model dtype."""
+    of ``cfg``: the norms, the SSM's ``a_log`` / ``dt_bias`` / ``d_skip``,
+    the RG-LRU's ``lam`` and the MoE router are fp32, everything else the
+    model dtype."""
     d, v = cfg.d_model, cfg.padded_vocab
     norm = d * (2 if cfg.norm == "layernorm" else 1)
     wide, fp32 = 2 * v * d, norm  # embedding and head; the final norm
     for kind in cfg.layer_types():
         fp32 += norm
-        if kind in ("attn_mlp", "attn"):
+        if kind in ATTN_KINDS:
             hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
             wide += d * dh * (hq + 2 * hkv) + hq * dh * d
         elif kind == "ssm":
@@ -71,7 +73,13 @@ def param_count(cfg) -> tuple[int, int]:
             w = cfg.lru_width or d
             wide += 2 * d * w + CONV_K * w + 2 * w * w + w * d
             fp32 += w
-        if kind != "ssm":
+        if kind == "moe":  # routed and shared experts, SwiGLU; the router
+            fp32 += norm + d * cfg.n_experts
+            wide += 3 * d * cfg.moe_d_ff * (cfg.n_experts
+                                            + cfg.n_shared_experts)
+            if cfg.moe_dense_residual:
+                wide += 3 * d * cfg.d_ff
+        elif kind != "ssm":
             fp32 += norm
             wide += (3 if cfg.activation == "swiglu" else 2) * d * cfg.d_ff
     return wide, fp32
@@ -81,7 +89,8 @@ def step_bytes(cfg, batch: int, ctx: int, dtype_bytes: int = 2) -> dict:
     """Bytes one decode step at ``batch`` moves with ``ctx`` positions
     cached: each read once, each write once.
 
-    ``weights``: every parameter but the token-embedding table.
+    ``weights``: every parameter but the token-embedding table (an MoE
+    step reads every expert: its dispatch buffer has rows for each).
     ``per_request``: one row of that table, the cache or state the step
     reads (K and V of ``ctx`` + 1 positions, the new one included, a
     hybrid's at most its window; the SSM and RG-LRU conv and recurrent
@@ -92,10 +101,10 @@ def step_bytes(cfg, batch: int, ctx: int, dtype_bytes: int = 2) -> dict:
     weights = (wide - cfg.padded_vocab * d) * dtype_bytes + fp32 * 4
     per_req = d * dtype_bytes
     for kind in cfg.layer_types():
-        if kind in ("attn_mlp", "attn"):
+        if kind in ATTN_KINDS:
             slot = 2 * cfg.n_kv_heads * cfg.head_dim * dtype_bytes
-            seen = ctx + 1 if kind == "attn_mlp" else min(ctx + 1,
-                                                          cfg.local_window)
+            seen = (min(ctx + 1, cfg.local_window) if kind == "attn"
+                    else ctx + 1)
             per_req += slot * seen + slot
         elif kind == "ssm":
             state = (CONV_K - 1) * cfg.ssm_d_inner * dtype_bytes + (

@@ -39,6 +39,10 @@ from repro_torch.core.profiles import ModelProfile
 LBP_BATCHES: tuple[int, ...] = (1, 2, 4, 8, 16, 32)
 #: the calibration batch of the SLO convention
 SLO_BATCH = 32
+#: the JAX package's serving mix (``benchmarks/tpulet_serving.py``, ``MIX``):
+#: arch -> rate weight
+MIX = {"yi-9b": 1.0, "chatglm3-6b": 1.0, "mamba2-780m": 4.0,
+       "deepseek-moe-16b": 1.0, "recurrentgemma-2b": 2.0}
 #: the left percents of the carves that realise the paper's five splits:
 #: (20, 80) and (80, 20) are one carve, (40, 60) and (60, 40) another
 CARVES: tuple[int, ...] = (20, 40, 50)

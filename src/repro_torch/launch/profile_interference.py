@@ -1,26 +1,29 @@
 """Interference on the card: co-run factors and solo features of the served
 models on SM partitions (paper §3.2, §4.4, Figs. 6 and 9).
 
-    python -m repro_torch.launch.profile_interference \\
-        [--archs yi-9b,chatglm3-6b,mamba2-780m,recurrentgemma-2b] \\
+    python -m repro_torch.launch.profile_interference [--archs A,B,...] \\
         [--batches 1,8,32] [--out-dir results/out]
 
 The card's counterpart of ``core/interference.py::profile_pairs_dataset``.
 One run on one card writes three files into ``--out-dir``:
 
   * ``h100_lbp.jsonl``: the L(b, p) grid (``profile_partitions.profile``:
-    every arch on the six partition sizes at batches 1-32);
+    every arch, by default the JAX package's serving mix, on the six
+    partition sizes at batches 1-32);
   * ``h100_corun.jsonl``: the co-run grid.  For each carve of the SMs
     (``core.h100lets.CARVES``: 24 + 108, 56 + 76 and 64 + 68 SMs on the
-    H100; their two sides cover the paper's five splits), each arch's
-    decode step at each batch of ``--batches`` is captured once on each
-    side (``profile_partitions.captured``: a cache of its own, so a model
-    can sit beside itself), then every ordered pair of archs at every pair
-    of batches runs side by side (``profile_partitions.corun``): one line
-    each with both sides' arch, percent, SMs, batch, solo and co-run ms
-    and factor (index 0 the carve's left side).  The graphs and caches of
-    a carve are freed before the next.  4 archs, 3 carves and 3 batches
-    make 16 x 3 x 9 = 432 co-runs;
+    H100; their two sides cover the paper's five splits) and each ordered
+    pair of archs, the left arch's decode step at each batch of
+    ``--batches`` is captured on the left side and the right arch's on the
+    right (``profile_partitions.captured``: a cache of its own, so a model
+    can sit beside itself), then the pair runs side by side at every pair
+    of batches (``profile_partitions.corun``): one line each with both
+    sides' arch, percent, SMs, batch, solo and co-run ms and factor (index
+    0 the carve's left side).  At most the two models of the pair are held
+    (the five of the mix weigh about 71 GB in bf16): a left arch's model
+    and graphs live through its row of right archs, a right arch's are
+    freed after its nine co-runs.  5 archs, 3 carves and 3 batches make
+    25 x 3 x 9 = 675 co-runs;
   * ``h100_features.jsonl``: per arch, partition size and batch (those of
     ``--batches`` and ``FEATURE_BATCH``), the share of the HBM rate one
     decode step uses alone: its bytes (``core.h100intf.step_bytes``) over
@@ -95,31 +98,35 @@ def partner(kind: str, part):
     return graph, keep
 
 
-def corun_grid(models: dict, carves, batches, *, seed: int,
+def corun_grid(archs, carves, batches, *, seed: int,
                ident: tuple[str, float], log=print) -> list[dict]:
     """The co-run grid: one record per (carve, left arch and batch, right
-    arch and batch).  A carve's left-side graphs live through the carve;
-    its right-side graphs one right arch at a time (memory)."""
+    arch and batch).  Models are built from ``seed`` at full width, at
+    most the two of a pair at a time; a left arch's model and graphs live
+    through its row of right archs."""
     from repro_torch.launch.partition import split
     versions = {"torch": torch.__version__, "cuda": torch.version.cuda}
     records = []
     for carve in carves:
         t0 = time.perf_counter()
         parts = split(carve)
-        left = {(arch, b): pp.captured(model, b, parts[0], seed=seed)
-                for arch, model in models.items() for b in batches}
-        for ar, model in models.items():
-            right = {b: pp.captured(model, b, parts[1], seed=seed + 1)
-                     for b in batches}
-            log(f"  carve {carve}/{100 - carve} ({parts[0].sms} + "
-                f"{parts[1].sms} SMs), {ar} on the right: "
-                f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB "
-                f"allocated, {time.perf_counter() - t0:.1f} s")
-            for al in models:
+        for al in archs:
+            model_l = pp.build(al, device="cuda", seed=seed)
+            left = {b: pp.captured(model_l, b, parts[0], seed=seed)
+                    for b in batches}
+            for ar in archs:
+                model_r = (model_l if ar == al
+                           else pp.build(ar, device="cuda", seed=seed))
+                right = {b: pp.captured(model_r, b, parts[1], seed=seed + 1)
+                         for b in batches}
+                log(f"  carve {carve}/{100 - carve} ({parts[0].sms} + "
+                    f"{parts[1].sms} SMs), {al} | {ar}: "
+                    f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+                    f"allocated, {time.perf_counter() - t0:.1f} s")
                 for bl in batches:
                     for br in batches:
-                        f = pp.corun(left[al, bl][0], parts[0],
-                                     right[br][0], parts[1])
+                        f = pp.corun(left[bl][0], parts[0], right[br][0],
+                                     parts[1])
                         records.append({
                             "card": ident[0], "power_limit_w": ident[1],
                             **versions, "carve": carve, "arch": [al, ar],
@@ -131,8 +138,10 @@ def corun_grid(models: dict, carves, batches, *, seed: int,
                             f"{f['factor'][1]:.3f} (launch "
                             f"{f['launch_ms']:.1f} of {max(f['span_ms']):.1f}"
                             " ms)")
-            _free(right)
-        _free(left)
+                del model_r
+                _free(right)
+            del model_l
+            _free(left)
         log(f"  carve {carve}: done in {time.perf_counter() - t0:.1f} s, "
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return records
@@ -173,12 +182,8 @@ def main(argv=None) -> int:
 
     log(f"co-run grid: {len(archs) ** 2} ordered pairs x {len(CARVES)} "
         f"carves x {len(batches) ** 2} batch pairs")
-    models = {arch: pp.build(arch, device="cuda", seed=args.seed)
-              for arch in archs}
-    records = corun_grid(models, CARVES, batches, seed=args.seed,
+    records = corun_grid(archs, CARVES, batches, seed=args.seed,
                          ident=ident, log=log)
-    del models
-    torch.cuda.empty_cache()
     if not all(t > 0 and math.isfinite(t) for r in records
                for t in r["solo_ms"] + r["corun_ms"]):
         raise RuntimeError("a co-run has no finite time")

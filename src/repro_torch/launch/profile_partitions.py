@@ -1,7 +1,6 @@
 """L(b, p) of the served models, measured on SM partitions of the card.
 
-    python -m repro_torch.launch.profile_partitions \\
-        [--archs yi-9b,chatglm3-6b,mamba2-780m,recurrentgemma-2b] \\
+    python -m repro_torch.launch.profile_partitions [--archs A,B,...] \\
         [--batches 1,2,4,8,16,32] [--out results/out/h100_lbp.jsonl]
 
 The card's counterpart of the JAX package's ``launch/dryrun.py`` as the
@@ -11,11 +10,12 @@ measures it.  L(b, p) is one decode step at batch b (as ``core/tpulets``
 takes the decode step) on a partition of p% of the card's SMs
 (``launch/partition.py``: 20, 40, 50, 60, 80 and 100%):
 
-  * each arch at full published width and depth, bf16, random weights from
-    ``--seed``; a cache of ``CTX`` = 1024 valid positions (1032 slots; a
-    hybrid keeps its windowed ring) filled from the seeded generator, so
-    prefill stays out of the grid's time (a step's time does not depend on
-    the values);
+  * each arch (by default those of the JAX package's serving mix,
+    ``core.h100lets.MIX``) at full published width and depth, bf16,
+    random weights from ``--seed``; a cache of ``CTX`` = 1024 valid
+    positions (1032 slots; a hybrid keeps its windowed ring) filled from
+    the seeded generator, so prefill stays out of the grid's time (a
+    step's time does not depend on the values);
   * with the partition's context current, a few eager steps warm up and
     are timed on the host (``eager_wall_ms``, median, ending in a
     synchronise), then one step is captured in a ``torch.cuda.CUDAGraph``
@@ -59,11 +59,11 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.h100intf import step_bytes
-from repro_torch.core.h100lets import CARVES, carve_of
+from repro_torch.core.h100lets import CARVES, MIX, carve_of
 from repro_torch.core.latency import PARTITION_SIZES
 from repro_torch.models.model import Model
 
-ARCHS = ("yi-9b", "chatglm3-6b", "mamba2-780m", "recurrentgemma-2b")
+ARCHS = tuple(MIX)
 BATCHES = (1, 2, 4, 8, 16, 32)
 CTX = 1024          # valid cache positions before the measured step
 SLOTS = 1032        # cache slots: the step writes position CTX

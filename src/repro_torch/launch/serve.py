@@ -10,13 +10,17 @@ the paper's baseline) and their ratio, then plans at 99% of the elastic
 maximum.  It prints each model's SLO and L(32, 100%) and, per card, the
 split with each gpu-let's models, batch, duty cycle and estimated latency.
 
-With the card's measured interference (``--corun`` and ``--features``,
-from ``launch/profile_interference.py``) it fits the paper's predictor
-and prints its error on a held-out split (Fig. 9;
-``core.h100intf.fit_measured``), and ``--max-scale`` reports four
-schedulers (Fig. 12): SBP, guided self-tuning (GSLICE), ``gpulet``
-(Elastic Partitioning) and ``gpulet+int`` (the same with the fitted
-predictor in its admission test), each beside SBP.
+``--max-scale`` also reports guided self-tuning (GSLICE) and the ideal
+scheduler (``core/ideal.py``: every per-card partitioning, Fig. 15/16)
+beside SBP, and the ideal's enumeration alone (``EnumeratedIdeal``): where
+no enumerated partitioning admits a load, ``IdealScheduler`` falls back to
+Elastic Partitioning's result, so its maximum is at least ``gpulet``'s by
+construction.  With the card's measured interference (``--corun`` and
+``--features``, from ``launch/profile_interference.py``) it fits the
+paper's predictor and prints its error on a held-out split (Fig. 9;
+``core.h100intf.fit_measured``), and ``--max-scale`` adds ``gpulet+int``
+(Elastic Partitioning with the fitted predictor in its admission test);
+with the ideal's, that makes the five schedulers of Fig. 12.
 
 ``--replay`` serves the placement through the event engine
 (``simulator/h100engine.py``): Poisson arrivals from ``--seed`` over
@@ -27,16 +31,32 @@ prints each one's violation rate, goodput and conservation.  A card's
 catalog (``--results``) without ``--corun`` replays only with
 ``--no-interference``: Elastic Partitioning at 60% of its maximum,
 interference off.  The labelled synthetic table replays without
-interference.  It prints one JSON line last and exits nonzero unless
-every request of every replay completed or was dropped.  The cluster is
-the scheduler's arithmetic over one card's measured tables, so it needs no
-card, and everything here runs on the CPU:
+interference.
+
+``--fluctuate`` runs the serving controller (``serving/controller.py``,
+Fig. 14) over the catalog: the mix's rates follow the load waves of the
+JAX package's ``examples/fluctuating_rates.py`` for 900 s with the
+example's seed, their base at the share of the elastic maximum that the
+example's base is of its own scheduler's maximum (``EXAMPLE_SHARE``), and
+the controller re-plans with Elastic Partitioning every 20 s.  Its engine
+prices every batch from the catalog's L(b, p), with interference off (the
+copied controller's own ``run`` would build an engine on the analytic
+2080 Ti model).  It prints the violations per window, per model and in
+all.
+
+It prints one JSON line last and exits nonzero unless every request of
+every replay and of the controller's run completed or was dropped.  The
+cluster is the scheduler's arithmetic over one card's measured tables, so
+it needs no card, and everything here runs on the CPU:
 
   python -m repro_torch.launch.serve --results results/h100_lbp.jsonl \\
       --corun results/h100_corun.jsonl \\
       --features results/h100_features.jsonl \\
-      --rates yi-9b=1,chatglm3-6b=1,mamba2-780m=4,recurrentgemma-2b=2 \\
-      --gpus 4 --max-scale --replay
+      --gpus 4 --max-scale --replay --fluctuate
+
+A card's catalog serves the JAX package's mix (``core.h100lets.MIX``:
+yi-9b, chatglm3-6b, mamba2-780m, deepseek-moe-16b and recurrentgemma-2b
+at 1 : 1 : 4 : 1 : 2) unless ``--rates`` names another.
 
 The counterpart of the JAX package's ``launch/serve.py`` and of
 ``benchmarks/tpulet_serving.py::serve_end_to_end``.
@@ -44,17 +64,23 @@ The counterpart of the JAX package's ``launch/serve.py`` and of
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import sys
 
 from repro_torch.core.elastic import ElasticPartitioning
+from repro_torch.core.gpulet import (GpuLet, GpuState,
+                                     enumerate_gpu_partitionings)
 from repro_torch.core.h100intf import (corun_summary, fit_measured,
                                        load_corun, load_features)
-from repro_torch.core.h100lets import (SLO_BATCH, SYNTHETIC_MIX,
+from repro_torch.core.h100lets import (MIX, SLO_BATCH, SYNTHETIC_MIX,
                                        granted_sms, load_catalog,
                                        synthetic_catalog)
 from repro_torch.core.hardware import H100_SXM, ClusterSpec
+from repro_torch.core.ideal import IdealScheduler
 from repro_torch.core.sbp import SquishyBinPacking
+from repro_torch.core.scheduler_base import ScheduleResult
 from repro_torch.core.selftuning import GuidedSelfTuning
 from repro_torch.launch.partition import target_sms
 
@@ -65,6 +91,16 @@ REPLAY_SHARE = 0.6    # of the elastic maximum, for the replay without a
 #                       co-run table
 AT_MAX_SHARE = 0.999  # of each scheduler's own maximum, for the replays
 #                       under measured interference (Fig. 13)
+#: examples/fluctuating_rates.py: the paper's five models' base rates
+#: (req/s), the seed of its arrivals and its horizon
+EXAMPLE_BASE = {"le": 100, "goo": 60, "res": 40, "ssd": 30, "vgg": 25}
+EXAMPLE_SEED = 11
+FLUCT_HORIZON_S = 900.0
+#: the example's base load as a share of the most its own scheduler admits:
+#: Elastic Partitioning with the fitted interference model places at most
+#: 15.75 x EXAMPLE_BASE on the paper's four 2080 Ti (the analytic profiles;
+#: tests/test_torch_scheduler.py recomputes it through the JAX package)
+EXAMPLE_SHARE = 1 / 15.75
 
 
 def parse_rates(text: str) -> dict[str, float]:
@@ -91,11 +127,14 @@ def cluster_of(n_gpus: int) -> ClusterSpec:
 def max_scales(profiles, provider, rates, n_gpus: int,
                intf_model=None) -> dict:
     """The largest schedulable multiple of ``rates`` for each scheduler:
-    ``elastic`` (the paper's ``gpulet``), ``sbp``, ``self-tuning`` and,
-    with an interference model, ``gpulet+int``."""
+    ``elastic`` (the paper's ``gpulet``), ``sbp``, ``self-tuning``,
+    ``ideal``, ``ideal (enumeration)`` and, with an interference model,
+    ``gpulet+int``."""
     schedulers = {"elastic": (ElasticPartitioning, None),
                   "sbp": (SquishyBinPacking, None),
-                  "self-tuning": (GuidedSelfTuning, None)}
+                  "self-tuning": (GuidedSelfTuning, None),
+                  "ideal": (IdealScheduler, None),
+                  "ideal (enumeration)": (EnumeratedIdeal, None)}
     if intf_model is not None:
         schedulers["gpulet+int"] = (ElasticPartitioning, intf_model)
     out = {}
@@ -104,6 +143,26 @@ def max_scales(profiles, provider, rates, n_gpus: int,
             n_gpus), lat=provider, intf_model=model)
         out[name] = sched.max_scale(rates, 0.0, SEARCH_HI)
     return out
+
+
+class EnumeratedIdeal(IdealScheduler):
+    """``IdealScheduler``'s enumeration alone: a load is schedulable only
+    where one of the enumerated per-card partitionings admits it, without
+    the fallback to Elastic Partitioning's result."""
+    name = "ideal (enumeration)"
+
+    def schedule(self, rates):
+        for combo in itertools.product(enumerate_gpu_partitionings(),
+                                       repeat=self.cluster.n_devices):
+            gpus = [GpuState(gid, [GpuLet(gpu_id=gid, size=s,
+                                          split_from=len(sizes) > 1)
+                                   for s in sizes])
+                    for gid, sizes in enumerate(combo)]
+            res = self._assign_on_fixed(gpus, rates)
+            if res.schedulable:
+                return res
+        return ScheduleResult(gpus=[], schedulable=False,
+                              unplaced=dict(rates), scheduler=self.name)
 
 
 def plan(profiles, provider, rates, n_gpus: int, intf_model=None):
@@ -137,6 +196,78 @@ def serve_end_to_end(profiles, provider, rates, *, n_gpus: int = 4,
         schedule=result, corun=corun)
     eng.submit(reqs)
     return eng.run(), result
+
+
+def fluctuating_rates(rates) -> dict:
+    """``examples/fluctuating_rates.py``'s load waves over ``rates`` (the
+    base of each model, phased by its place in the mix): req/s at t s."""
+    def wave(base, phase):
+        def fn(t):
+            w1 = math.exp(-((t - 200) / 90) ** 2) * 1.2
+            w2 = math.exp(-((t - 650) / 110) ** 2) * 2.0
+            return base * (0.5 + w1 + w2 + 0.1 * math.sin(t / 37 + phase))
+        return fn
+    return {m: wave(r, i) for i, (m, r) in enumerate(rates.items())}
+
+
+def fluctuate(profiles, provider, rates, *, n_gpus: int = 4,
+              seed: int = EXAMPLE_SEED, horizon_s: float = FLUCT_HORIZON_S):
+    """The serving controller (Fig. 14) re-planning with Elastic
+    Partitioning over the catalog as the rates follow
+    :func:`fluctuating_rates` around ``rates``.  The controller is the tick
+    subscriber of an engine built here (its ``make_subscriber`` path), so
+    that every batch is priced from ``provider``; interference is off.
+    Returns (one record per controller window, the run's metrics, the
+    number of requests offered, the schedule deployed at t = 0)."""
+    from repro_torch.serving.controller import ServingController
+    from repro_torch.simulator import EngineConfig, EventHeapEngine
+    from repro_torch.simulator.events import merge_sorted
+    from repro_torch.simulator.metrics import window_metrics
+    profs = {m: profiles[m] for m in rates}
+    ctrl = ServingController(ElasticPartitioning(
+        profs, cluster=cluster_of(n_gpus), lat=provider), profs, seed=seed)
+    fns = fluctuating_rates(rates)
+    horizon_ms = horizon_s * 1e3
+    streams = []
+    for m, fn in fns.items():
+        peak = max(fn(k * horizon_s / 256) for k in range(257)) + 1e-9
+        streams.append(ctrl.gen.time_varying(
+            m, lambda t, fn=fn: fn(t / 1e3), peak, profs[m].slo_ms,
+            horizon_ms))
+    reqs = merge_sorted(streams)
+    schedule, on_tick = ctrl.make_subscriber(
+        {m: fn(0.0) for m, fn in fns.items()})
+    engine = EventHeapEngine(
+        profs, EngineConfig(horizon_ms=horizon_ms, acc=H100_SXM,
+                            lat=provider, interference=False,
+                            period_ms=ctrl.period_s * 1e3,
+                            reorg_ms=ctrl.reorg_s * 1e3,
+                            reorg_policy=ctrl.reorg_policy, event_log=False),
+        schedule=schedule, on_tick=on_tick)
+    engine.submit(reqs)
+    met = engine.run()
+    n_windows = max(1, math.ceil(horizon_s / ctrl.period_s - 1e-9))
+    decisions = ctrl._decisions  # (EWMA rates, rescheduled, partition %)
+    records = []
+    for k, win in enumerate(window_metrics(reqs, ctrl.period_s * 1e3,
+                                           n_windows, horizon_ms=horizon_ms)):
+        _, resched, used = decisions[min(k, len(decisions) - 1)]
+        records.append({"t_s": k * ctrl.period_s, "requests": win.total,
+                        "violations": win.slo_violations,
+                        "rescheduled": resched, "partition_total": used})
+    return records, met, len(reqs), schedule
+
+
+def fluctuate_summary(records, met, offered: int) -> dict:
+    return {"total": met.total, "completed": met.completed,
+            "dropped": met.dropped, "violation_rate": met.violation_rate,
+            "reschedules": sum(r["rescheduled"] for r in records[1:]),
+            "interference": "off",
+            "per_model": {m: {"total": v["total"], "dropped": v["dropped"],
+                              "violation_rate": v["violations"] / v["total"]}
+                          for m, v in met.per_model.items()},
+            "conserved": (met.completed + met.dropped == met.total == offered
+                          == sum(r["requests"] for r in records))}
 
 
 def replay_summary(met, result, rates) -> dict:
@@ -229,22 +360,25 @@ def main(argv=None) -> int:
     ap.add_argument("--no-interference", action="store_true",
                     help="replay a card's catalog without interference")
     ap.add_argument("--rates", default=None,
-                    help="comma list arch=req_per_s (default: the "
-                         "synthetic mix)")
+                    help="comma list arch=req_per_s (default: the JAX "
+                         "package's mix with --results, else the synthetic "
+                         "mix)")
     ap.add_argument("--gpus", type=int, default=4)
     ap.add_argument("--max-scale", action="store_true",
                     help="report the max schedulable multiple of --rates "
                          "for each scheduler")
     ap.add_argument("--replay", action="store_true",
                     help="serve the placement through the event engine")
+    ap.add_argument("--fluctuate", action="store_true",
+                    help="run the serving controller under fluctuating "
+                         "rates (Fig. 14)")
     ap.add_argument("--horizon-s", type=float, default=20.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     profiles, provider, source = catalog(args.results)
     rates = (parse_rates(args.rates) if args.rates
-             else {m: r for m, r in SYNTHETIC_MIX.items()
-                   if args.results is None})
+             else dict(MIX if args.results else SYNTHETIC_MIX))
     unknown = sorted(set(rates) - set(profiles))
     if unknown or not rates:
         raise SystemExit(f"{unknown or 'no rates'}: not in {source} "
@@ -278,7 +412,8 @@ def main(argv=None) -> int:
               f"elastic / SBP "
               f"{'n/a (SBP admits none)' if ratio is None else f'{ratio:.3f}'}"
               " (paper, 2080 Ti: 2.026)")
-        for name in ("self-tuning", "gpulet+int"):
+        for name in ("self-tuning", "ideal", "ideal (enumeration)",
+                     "gpulet+int"):
             if name in lam:
                 over = (f"{lam[name] / lam['sbp']:.3f}" if lam["sbp"]
                         else "n/a")
@@ -287,7 +422,9 @@ def main(argv=None) -> int:
                       f"{over}")
         summary = {"elastic_max_scale": lam["elastic"],
                    "sbp_max_scale": lam["sbp"], "elastic_over_sbp": ratio,
-                   "selftuning_max_scale": lam["self-tuning"]}
+                   "selftuning_max_scale": lam["self-tuning"],
+                   "ideal_max_scale": lam["ideal"],
+                   "ideal_enumerated_max_scale": lam["ideal (enumeration)"]}
         if intf_model is not None:
             summary["gpulet_int_max_scale"] = lam["gpulet+int"]
         plan_rates = {m: r * lam["elastic"] * PLAN_SHARE
@@ -296,45 +433,74 @@ def main(argv=None) -> int:
         plan_rates = rates
     print_plan(plan(profiles, provider, plan_rates, args.gpus), provider,
                args.gpus)
-    if not args.replay:
-        return 0
-    if corun is None:
+    line, ok = {"seed": args.seed, "source": source, **summary}, True
+    if args.replay and corun is None:
         replay_rates = ({m: r * lam["elastic"] * REPLAY_SHARE
                          for m, r in rates.items()} if lam else rates)
         met, result = serve_end_to_end(
             profiles, provider, replay_rates, n_gpus=args.gpus,
             horizon_s=args.horizon_s, seed=args.seed)
-        line = {"replay": replay_summary(met, result, replay_rates),
-                "horizon_s": args.horizon_s, "seed": args.seed,
-                "source": source, **summary}
+        line.update(replay=replay_summary(met, result, replay_rates),
+                    horizon_s=args.horizon_s)
+        ok = line["replay"]["conserved"] and met.total > 0
+    elif args.replay:
+        replays = {}
+        for name, model in (("gpulet", None), ("gpulet+int", intf_model)):
+            share = (AT_MAX_SHARE * lam["elastic" if model is None
+                                        else name] if lam else 1.0)
+            replay_rates = {m: r * share for m, r in rates.items()}
+            met, result = serve_end_to_end(
+                profiles, provider, replay_rates, n_gpus=args.gpus,
+                horizon_s=args.horizon_s, seed=args.seed, corun=corun,
+                intf_model=model)
+            replays[name] = rep = dict(
+                replay_summary(met, result, replay_rates), scale=share)
+            print(f"replay {name} at {share:.3f}x of the mix, measured "
+                  f"interference: {rep['violation_rate'] * 100:.3f}% "
+                  f"violations, goodput {rep['goodput_req_s']:.1f} req/s of "
+                  f"{rep['offered_req_s']:.1f} offered, conserved "
+                  f"{rep['conserved']}" + ("" if rep["offered_req_s"] else
+                                           " (the scheduler admits no load)"))
+        line.update(replays=replays, horizon_s=args.horizon_s,
+                    corun=args.corun, features=args.features)
+        # a replay of offered load must serve some; one of none has nothing
+        ok = all(r["conserved"] and (r["total"] > 0 or not r["offered_req_s"])
+                 for r in replays.values())
+    if args.fluctuate:
+        share = lam["elastic"] * EXAMPLE_SHARE if lam else 1.0
+        records, met, offered, first = fluctuate(
+            profiles, provider, {m: r * share for m, r in rates.items()},
+            n_gpus=args.gpus)
+        print(f"controller (Fig. 14), rates of examples/fluctuating_rates.py "
+              f"at base {share:.3f}x of the mix (the example's base is "
+              f"{EXAMPLE_SHARE:.5f} of its scheduler's maximum on the 2080 "
+              f"Ti), seed {EXAMPLE_SEED}, {FLUCT_HORIZON_S:g} s, "
+              "interference off: t(s), requests, violations %, gpu-let % "
+              "in use, rescheduled")
+        print("the controller's plan at t = 0:")
+        print_plan(first, provider, args.gpus)
+        for r in records:
+            pct = (100 * r["violations"] / r["requests"] if r["requests"]
+                   else 0.0)
+            print(f"  {r['t_s']:5.0f} {r['requests']:8d} {pct:7.3f}% "
+                  f"{r['partition_total']:5d}%"
+                  + ("  <resched>" if r["rescheduled"] else ""))
+        fl = dict(fluctuate_summary(records, met, offered), scale=share,
+                  example_share=EXAMPLE_SHARE, seed=EXAMPLE_SEED,
+                  horizon_s=FLUCT_HORIZON_S)
+        for m, v in fl["per_model"].items():
+            print(f"  {m:<20} {v['total']:8d} requests "
+                  f"{v['violation_rate'] * 100:7.3f}% violations, "
+                  f"{v['dropped']} dropped")
+        print(f"controller: {fl['total']} requests, "
+              f"{fl['violation_rate'] * 100:.3f}% violations, "
+              f"{fl['reschedules']} reschedules, conserved {fl['conserved']}"
+              " (interference off)")
+        line["fluctuate"] = fl
+        ok = ok and fl["conserved"] and fl["total"] > 0
+    if args.replay or args.fluctuate:
         print(json.dumps(line))
-        return 0 if line["replay"]["conserved"] and met.total > 0 else 1
-    replays = {}
-    for name, model in (("gpulet", None), ("gpulet+int", intf_model)):
-        share = (AT_MAX_SHARE * lam["elastic" if model is None else name]
-                 if lam else 1.0)
-        replay_rates = {m: r * share for m, r in rates.items()}
-        met, result = serve_end_to_end(
-            profiles, provider, replay_rates, n_gpus=args.gpus,
-            horizon_s=args.horizon_s, seed=args.seed, corun=corun,
-            intf_model=model)
-        replays[name] = dict(replay_summary(met, result, replay_rates),
-                             scale=share)
-        rep = replays[name]
-        print(f"replay {name} at {share:.3f}x of the mix, measured "
-              f"interference: {rep['violation_rate'] * 100:.3f}% violations,"
-              f" goodput {rep['goodput_req_s']:.1f} req/s of "
-              f"{rep['offered_req_s']:.1f} offered, conserved "
-              f"{rep['conserved']}" + ("" if rep["offered_req_s"] else
-                                       " (the scheduler admits no load)"))
-    print(json.dumps({"replays": replays, "horizon_s": args.horizon_s,
-                      "seed": args.seed, "source": source,
-                      "corun": args.corun, "features": args.features,
-                      **summary}))
-    # a replay of offered load must serve some; one of none has nothing
-    return 0 if all(r["conserved"] and (r["total"] > 0
-                                        or not r["offered_req_s"])
-                    for r in replays.values()) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

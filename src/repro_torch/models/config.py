@@ -17,6 +17,8 @@ import dataclasses
 from typing import Literal
 
 ArchType = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
+#: layer kinds (``ModelConfig.layer_types``) with attention and a KV cache
+ATTN_KINDS = ("attn_mlp", "moe", "attn")
 
 
 def round_up(x: int, m: int) -> int:

@@ -1,9 +1,10 @@
 """The Model: config -> init / forward / prefill / decode.
 
 PyTorch counterpart of the JAX package's ``models/model.py`` for the dense
-decoders, the SSM (mamba2) and the hybrid (recurrentgemma).  The JAX
-``Model`` is pure: parameters are a pytree passed to every method.  Here the parameters live in the ``nn.Module`` and the
-methods take token tensors:
+decoders, the MoE decoders (deepseek-moe, arctic), the SSM (mamba2) and the
+hybrid (recurrentgemma).  The JAX ``Model`` is pure: parameters are a
+pytree passed to every method.  Here the parameters live in the
+``nn.Module`` and the methods take token tensors:
 
   * ``forward(tokens)``: (B, S) -> logits (B, S, padded_vocab);
   * ``prefill(tokens, cache)``: logits of the last position only;
@@ -24,7 +25,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Embed, make_norm
 
-SERVED = ("dense", "ssm", "hybrid")  # arch types the port serves
+SERVED = ("dense", "moe", "ssm", "hybrid")  # arch types the port serves
 
 
 def resolve_device(device) -> torch.device:

@@ -1,13 +1,12 @@
-"""Block assembly: attention, SSM and RG-LRU residual blocks, and the
+"""Block assembly: attention, MoE, SSM and RG-LRU residual blocks, and the
 layer stack.
 
 PyTorch counterpart of the JAX package's ``models/transformer.py`` for the
-kinds ``attn_mlp`` (dense), ``ssm`` (mamba2) and ``rglru`` / ``attn`` (the
-hybrid's recurrent and local-attention blocks); ``moe`` comes with a later
-slice of the port and raises ``NotImplementedError`` here.  The JAX package
-scans stacked layer parameters with ``lax.scan`` (or loops over the
-hybrid's list); here the stack is a Python loop over an ``nn.ModuleList``
-of blocks.
+kinds ``attn_mlp`` (dense), ``moe`` (attention then the MoE layer in place
+of the MLP), ``ssm`` (mamba2) and ``rglru`` / ``attn`` (the hybrid's
+recurrent and local-attention blocks).  The JAX package scans stacked
+layer parameters with ``lax.scan`` (or loops over the hybrid's list);
+here the stack is a Python loop over an ``nn.ModuleList`` of blocks.
 
 Caches are per-layer dicts, updated in place (the JAX code returns new
 arrays; in place saves a copy of the cache per layer): ``{"k", "v"}`` of
@@ -24,23 +23,21 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN_KINDS, ModelConfig
 from repro_torch.models.layers import (MLP, Attention, apply_rope,
                                        attention_decode, attention_full,
                                        make_norm)
 
-ATTN_KINDS = ("attn_mlp", "attn")
 KINDS = ATTN_KINDS + ("ssm", "rglru")
 
 
 def _require_ported(kind: str):
     if kind not in KINDS:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not yet ported; "
-            + ("it comes with the MoE slice of the port" if kind == "moe"
-               else f"the port has {KINDS}"))
+            f"layer kind {kind!r} is not yet ported; the port has {KINDS}")
 
 
 # ---------------------------------------------------------------- init ----
@@ -48,8 +45,9 @@ def _require_ported(kind: str):
 
 class Block(nn.Module):
     """Pre-norm residual block, with the JAX ``init_layer`` parameters of
-    its kind: attention then MLP (``attn_mlp``, ``attn``); the SSM mixer
-    alone (``ssm``); the RG-LRU then MLP (``rglru``)."""
+    its kind: attention then MLP (``attn_mlp``, ``attn``); attention then
+    the MoE layer (``moe``); the SSM mixer alone (``ssm``); the RG-LRU then
+    MLP (``rglru``)."""
 
     def __init__(self, kind: str, cfg: ModelConfig, *, device, dtype):
         super().__init__()
@@ -67,6 +65,9 @@ class Block(nn.Module):
                                               dtype=dtype)
         if kind != "ssm":
             self.ln2 = norm(d, device=device)
+        if kind == "moe":
+            self.moe = moe_mod.moe_init(cfg, device=device, dtype=dtype)
+        elif kind != "ssm":
             self.mlp = MLP(d, cfg.d_ff, cfg.activation, device=device,
                            dtype=dtype)
 
@@ -147,6 +148,15 @@ def _window(kind: str, cfg: ModelConfig, window_override):
     return cfg.local_window if kind == "attn" else cfg.sliding_window
 
 
+def _feed_forward(block: Block, x, kind: str):
+    """The block's second residual half: the MLP, or the MoE layer (without
+    its aux loss, a training term), or nothing (``ssm``)."""
+    if kind == "ssm":
+        return x
+    h = block.ln2(x)
+    return x + (block.moe(h) if kind == "moe" else block.mlp(h))
+
+
 def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
                     cache=None, window_override=None):
     """Full-sequence residual block.  Returns (x, cache); a recurrent
@@ -162,10 +172,7 @@ def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
         out, state = apply(getattr(block, kind), h, cfg, cache)
         if cache is not None:
             cache.update(state)
-    x = x + out
-    if kind == "ssm":
-        return x, cache
-    return x + block.mlp(block.ln2(x)), cache
+    return _feed_forward(block, x + out, kind), cache
 
 
 def block_apply_step(block: Block, x, kind: str, cfg: ModelConfig, cache,
@@ -182,10 +189,7 @@ def block_apply_step(block: Block, x, kind: str, cfg: ModelConfig, cache,
                 else rglru_mod.rglru_decode_step)
         out, state = step(getattr(block, kind), h, cfg, cache)
         cache.update(state)
-    x = x + out
-    if kind == "ssm":
-        return x, cache
-    return x + block.mlp(block.ln2(x)), cache
+    return _feed_forward(block, x + out, kind), cache
 
 
 # ----------------------------------------------------------- layer stack --

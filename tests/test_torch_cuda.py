@@ -381,7 +381,8 @@ def test_decode_every_group_on_smallest_partition(cuda, smallest, dh, g):
 
 
 @pytest.mark.parametrize("arch,layers", [("yi-9b", 2), ("mamba2-780m", 2),
-                                         ("recurrentgemma-2b", 3)])
+                                         ("recurrentgemma-2b", 3),
+                                         ("deepseek-moe-16b", 2)])
 def test_captured_decode_step_equals_eager_bitwise(cuda, smallest, arch,
                                                    layers):
     """A decode step at full width (a few layers, bf16) captured as a CUDA

@@ -40,8 +40,10 @@ ROOT = Path(__file__).resolve().parent.parent
 RESULTS = ROOT / "results"
 LBP, CORUN, FEATURES = (RESULTS / f"h100_{n}.jsonl"
                         for n in ("lbp", "corun", "features"))
-MIX = "yi-9b=1,chatglm3-6b=1,mamba2-780m=4,recurrentgemma-2b=2"
-ARCHS = ("yi-9b", "chatglm3-6b", "mamba2-780m", "recurrentgemma-2b")
+MIX = ("yi-9b=1,chatglm3-6b=1,mamba2-780m=4,deepseek-moe-16b=1,"
+       "recurrentgemma-2b=2")
+ARCHS = ("yi-9b", "chatglm3-6b", "mamba2-780m", "deepseek-moe-16b",
+         "recurrentgemma-2b")
 JPROFS = jcore.calibrate_profiles()
 TPROFS = tcore.calibrate_profiles()
 CARD = {"card": "JAX reference (analytic 2080 Ti)", "power_limit_w": None}
@@ -283,7 +285,7 @@ def test_serve_refuses_interference_on_a_card_catalog_without_corun():
 
 
 PORTED = ("yi-9b", "chatglm3-6b", "mamba2-780m", "recurrentgemma-2b",
-          "stablelm-12b", "command-r-35b")
+          "stablelm-12b", "command-r-35b", "deepseek-moe-16b", "arctic-480b")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -348,6 +350,57 @@ def test_profile_interference_summary(tmp_path):
                                "p90_rel_err", "p95_rel_err", "mean_rel_err"}
 
 
+def test_corun_grid_holds_at_most_the_two_models_of_a_pair(monkeypatch):
+    """The co-run grid's loop on the CPU, with the card's steps stubbed:
+    every ordered pair of archs on every carve at every pair of batches,
+    one record each, and never more than two models alive (the five of
+    the mix do not fit one card beside their graphs)."""
+    import gc
+    import weakref
+
+    import repro_torch.launch.partition as part_mod
+    from repro_torch.launch import profile_partitions as pp
+
+    alive, most = weakref.WeakSet(), [0]
+
+    class Built:
+        def __init__(self, arch):
+            self.arch = arch
+
+    class Graph:
+        def reset(self):
+            pass
+
+    def build(arch, *, device, seed):
+        gc.collect()
+        model = Built(arch)
+        alive.add(model)
+        most[0] = max(most[0], len(alive))
+        return model
+
+    def split(carve):
+        return [pp._WholeCPU(carve), pp._WholeCPU(100 - carve)]
+
+    monkeypatch.setattr(pp, "build", build)
+    monkeypatch.setattr(pp, "captured",
+                        lambda model, b, part, seed: (Graph(), None, None))
+    monkeypatch.setattr(pp, "corun", lambda *a: {
+        "solo_ms": [1.0, 2.0], "corun_ms": [1.5, 2.5], "factor": [1.5, 1.25],
+        "launch_ms": 0.1, "span_ms": [3.0, 3.0]})
+    monkeypatch.setattr(part_mod, "split", split)
+    monkeypatch.setattr(pi.torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(pi.torch.cuda, "memory_allocated", lambda: 0)
+    monkeypatch.setattr(pi.torch.cuda, "max_memory_allocated", lambda: 0)
+    archs = ("a", "b", "c")
+    recs = pi.corun_grid(archs, (20, 40), (1, 8), seed=0,
+                         ident=("card", 700.0), log=lambda line: None)
+    assert len(recs) == 9 * 2 * 4
+    assert {(r["carve"], *r["arch"], *r["batch"]) for r in recs} == {
+        (c, a, b, x, y) for c in (20, 40) for a in archs for b in archs
+        for x in (1, 8) for y in (1, 8)}
+    assert most[0] == 2
+
+
 # ------------------------------------------------- the committed files ----
 
 
@@ -365,7 +418,7 @@ def test_committed_lbp_prices_no_side_from_more_sms_than_it_gets():
 
 def test_committed_corun_and_features_are_complete_and_one_cards():
     corun, feats = load_corun(str(CORUN)), load_features(str(FEATURES))
-    assert len(corun.records) == 16 * 3 * 9 == 432
+    assert len(corun.records) == 25 * 3 * 9 == 675
     assert corun.archs == feats.archs == sorted(ARCHS)
     assert corun.batches == (1, 8, 32)
     assert feats.batches == (1, 8, 16, 32)
@@ -384,9 +437,12 @@ def test_committed_corun_and_features_are_complete_and_one_cards():
 
 
 def test_serve_replays_the_committed_tables(monkeypatch):
-    """The paper's comparison from the committed tables, on the CPU: the
-    fit, four max scales, and both replays conserving their requests;
-    no path reaches the analytic 2080 Ti ground truth or features."""
+    """The paper's comparison from the committed tables, on the CPU, on
+    the JAX package's mix (the default): the fit, five max scales and the
+    ideal's enumeration alone, both replays and the controller under
+    fluctuating rates at the example's share and seed conserving their
+    requests; no path reaches the analytic 2080 Ti ground truth or
+    features."""
     import repro_torch.core.interference as tint
     import repro_torch.simulator.engine as teng
 
@@ -398,15 +454,33 @@ def test_serve_replays_the_committed_tables(monkeypatch):
                             raising=False)
     monkeypatch.setattr(tint, "solo_features", boom)
     rc, lines = _main(["--results", str(LBP), "--corun", str(CORUN),
-                       "--features", str(FEATURES), "--rates", MIX,
-                       "--gpus", "4", "--max-scale", "--replay",
-                       "--horizon-s", "5"])
+                       "--features", str(FEATURES), "--gpus", "4",
+                       "--max-scale", "--replay", "--horizon-s", "5",
+                       "--fluctuate"])
     assert rc == 0
     assert any(line.startswith("interference predictor (Fig. 9)")
                for line in lines)
+    assert any(line.startswith("  deepseek-moe-16b ") for line in lines)
     out = json.loads(lines[-1])
-    for key in ("elastic_max_scale", "sbp_max_scale", "selftuning_max_scale"):
+    for key in ("elastic_max_scale", "selftuning_max_scale",
+                "ideal_max_scale", "ideal_enumerated_max_scale"):
         assert out[key] > 0
+    # whole cards: four cards hold the five models only by time-sharing
+    # one, which their SLOs all but forbid; five cards give each its own
+    assert out["sbp_max_scale"] >= 0
+    profiles, provider = load_catalog(str(LBP))
+    mix = serve.parse_rates(MIX)
+    assert tcore.SquishyBinPacking(
+        {m: profiles[m] for m in mix}, cluster=serve.cluster_of(5),
+        lat=provider).max_scale(mix, 0.0, serve.SEARCH_HI) > 0
+    fl = out["fluctuate"]
+    assert fl["conserved"] and fl["total"] > 0
+    assert fl["completed"] + fl["dropped"] == fl["total"]
+    assert fl["interference"] == "off" and fl["reschedules"] > 0
+    assert (fl["seed"], fl["example_share"]) == (serve.EXAMPLE_SEED,
+                                                 serve.EXAMPLE_SHARE)
+    assert fl["scale"] == out["elastic_max_scale"] * fl["example_share"]
+    assert sum(v["total"] for v in fl["per_model"].values()) == fl["total"]
     # with the measured factors, gpulet+int may admit less, down to none
     assert 0 <= out["gpulet_int_max_scale"] <= out["elastic_max_scale"]
     assert set(out["replays"]) == {"gpulet", "gpulet+int"}

@@ -19,6 +19,7 @@ from repro.kernels.decode_attention import decode_attention as pallas_decode  # 
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro_torch.configs import ARCH_IDS, NOT_YET_PORTED, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.models.config import ATTN_KINDS  # noqa: E402
 from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 
@@ -181,17 +182,27 @@ def test_decode_split_plan_covers_the_cache():
         assert (n_split - 1) * chunk < s  # no split starts past the cache
 
 
+#: ported archs that run on the CPU only, and why
+CPU_ONLY = {"arctic-480b": "about 960 GB of bf16 weights, twelve 80 GB "
+                           "cards' worth; its GQA group of 7 is no decode "
+                           "kernel instantiation"}
+
+
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
                                   if a not in NOT_YET_PORTED])
 def test_attention_kernels_are_built_for_every_ported_arch(arch):
     """The executor serves any ported arch, so each attention arch's head
     dim and group must be ones the CUDA kernels are built for (the JAX
     kernels take any head dim).  An arch without attention layers needs
-    neither."""
+    neither; ``moe`` layers are attention layers.  An arch that cannot fit
+    one card is held to the CPU (``CPU_ONLY``)."""
     cfg = get_config(arch)
     kinds = set(cfg.layer_types())
-    if not kinds & {"attn", "attn_mlp"}:
+    if not kinds & set(ATTN_KINDS):
         assert cfg.arch_type == "ssm"
+        return
+    if arch in CPU_ONLY:
+        assert 2 * cfg.param_count() > 80e9, CPU_ONLY[arch]
         return
     assert cfg.head_dim in tflash.HEAD_DIMS
     assert cfg.n_heads // cfg.n_kv_heads in tdecode.GROUPS[cfg.head_dim]

@@ -29,7 +29,8 @@ from repro_torch.launch import serve  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 COMMITTED = ROOT / "results" / "h100_lbp.jsonl"
-MIX = "yi-9b=1,chatglm3-6b=1,mamba2-780m=4,recurrentgemma-2b=2"
+MIX = ("yi-9b=1,chatglm3-6b=1,mamba2-780m=4,deepseek-moe-16b=1,"
+       "recurrentgemma-2b=2")
 # each percent on the side of the carve it names: 60 is the right side of
 # the 40/60 carve, 80 of the 20/80 one, 50 the left (smaller) side
 SMS = {20: 24, 40: 56, 50: 64, 60: 76, 80: 108, 100: 132}
@@ -246,16 +247,18 @@ def test_serve_cli_refuses_an_unknown_arch(tmp_path):
 
 
 def test_serve_from_the_committed_h100_catalog():
-    """The measured file in the repo: every cell of the four archs x six
-    partitions x six batches from one card, each measured on the side of
-    the carve its percent names, with the carves' granted SMs and the
-    step's bytes; and the serving plan and its replay without interference
+    """The measured file in the repo: every cell of the five archs of the
+    JAX package's mix x six partitions x six batches from one card, each
+    measured on the side of the carve its percent names, with the carves'
+    granted SMs and the step's bytes; and the serving plan and its replay
+    without interference
     run from it on the CPU (``tests/test_torch_interference.py`` replays
     it with the measured interference)."""
     lines = COMMITTED.read_text().splitlines()
     recs = [json.loads(line) for line in lines]
     cells = {(r["arch"], r["percent"], r["batch"]) for r in recs}
-    archs = ("yi-9b", "chatglm3-6b", "mamba2-780m", "recurrentgemma-2b")
+    archs = ("yi-9b", "chatglm3-6b", "mamba2-780m", "deepseek-moe-16b",
+             "recurrentgemma-2b")
     assert cells == {(a, p, b) for a in archs for p in PARTITION_SIZES
                      for b in LBP_BATCHES}
     assert len(recs) == len(cells)

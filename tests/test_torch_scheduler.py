@@ -176,11 +176,169 @@ def test_event_engine_run_identical():
     assert jreq == treq
 
 
+def test_ideal_at_least_elastic():
+    """``tests/test_schedulers.py::test_ideal_at_least_elastic`` through
+    both packages: the same max scale of the exhaustive scheduler, at
+    least elastic's."""
+    from repro.core.scenarios import REQUEST_SCENARIOS
+    rates = REQUEST_SCENARIOS["equal"]
+    lam_e = tcore.ElasticPartitioning(TPROFS, intf_model=TINTF).max_scale(
+        rates)
+    lam_i = tcore.IdealScheduler(TPROFS, intf_model=TINTF).max_scale(rates)
+    assert lam_i >= lam_e * 0.99
+    assert lam_i == jcore.IdealScheduler(JPROFS,
+                                         intf_model=JINTF).max_scale(rates)
+    half = {m: r * lam_i / 2 for m, r in rates.items()}
+    assert plain(jcore.IdealScheduler(JPROFS, intf_model=JINTF).schedule(
+        half)) == plain(tcore.IdealScheduler(TPROFS,
+                                             intf_model=TINTF).schedule(half))
+
+
+def test_enumerated_ideal_is_the_ideal_without_its_fallback():
+    """``launch/serve.py``'s ``EnumeratedIdeal`` places a load exactly as
+    ``IdealScheduler`` does where an enumerated partitioning admits it, and
+    refuses one that only the ideal's fallback to Elastic Partitioning
+    places."""
+    from repro.core.scenarios import REQUEST_SCENARIOS
+    from repro_torch.launch import serve
+    rates = REQUEST_SCENARIOS["equal"]
+    enum = serve.EnumeratedIdeal(TPROFS, intf_model=TINTF)
+    ideal = tcore.IdealScheduler(TPROFS, intf_model=TINTF)
+    lam = enum.max_scale(rates)
+    assert 0 < lam <= ideal.max_scale(rates)
+    at = {m: r * lam for m, r in rates.items()}
+    got, want = plain(enum.schedule(at)), plain(ideal.schedule(at))
+    assert got["schedulable"] and want["schedulable"]
+    assert (got["gpus"], got["unplaced"]) == (want["gpus"], want["unplaced"])
+    beyond = {m: r * lam * 1.5 for m, r in rates.items()}
+    assert not enum.schedule(beyond).schedulable
+
+
+def test_fluctuating_load_is_the_examples():
+    """``launch/serve.py --fluctuate`` takes the base rates, seed and
+    horizon of ``examples/fluctuating_rates.py``, and its load share is the
+    example's base over what the example's scheduler (Elastic Partitioning
+    with the fitted interference model, on the paper's cluster) admits,
+    computed through the JAX package."""
+    import ast
+    from repro_torch.launch import serve
+    example = PORT.parent.parent / "examples" / "fluctuating_rates.py"
+    tree = ast.parse(example.read_text())
+    base = next(ast.literal_eval(n.value) for n in ast.walk(tree)
+                if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == "base")
+    kw = {k.arg: ast.literal_eval(k.value) for n in ast.walk(tree)
+          if isinstance(n, ast.Call) for k in n.keywords
+          if k.arg in ("seed", "horizon_s")}
+    assert base == serve.EXAMPLE_BASE
+    assert kw == {"seed": serve.EXAMPLE_SEED,
+                  "horizon_s": serve.FLUCT_HORIZON_S}
+    lam = jcore.ElasticPartitioning(JPROFS, intf_model=JINTF).max_scale(
+        base, 0.0, serve.SEARCH_HI)
+    assert serve.EXAMPLE_SHARE == 1.0 / lam
+
+
+# the behaviours of tests/test_controller.py, each through both packages
+
+
+def test_ewma_identical():
+    import repro.serving as jserving
+    import repro_torch.serving as tserving
+    out = []
+    for serving in (jserving, tserving):
+        t = serving.EWMARateTracker(alpha=0.5)
+        out.append([t.update({"a": 100.0}), t.update({"a": 200.0}),
+                     t.rates])
+    assert out[0] == out[1] and out[1][-1]["a"] == 150.0
+
+
+def test_ewma_decays_absent_models_to_zero_identical():
+    import repro.serving as jserving
+    import repro_torch.serving as tserving
+    out = []
+    for serving in (jserving, tserving):
+        t = serving.EWMARateTracker(alpha=0.5)
+        out.append([t.update({"a": 100.0, "b": 64.0}),
+                    t.update({"a": 100.0})]
+                   + [t.update({"a": 100.0}) for _ in range(40)])
+    assert out[0] == out[1]
+    assert out[1][1]["b"] == 32.0
+    assert "b" not in out[1][-1] and out[1][-1]["a"] == 100.0
+
+
+def _controller(core, serving, profs, intf, seed=0):
+    return serving.ServingController(
+        core.ElasticPartitioning(profs, intf_model=intf), profs, seed=seed)
+
+
+def test_reschedule_stores_provisioned_target_identical():
+    import repro.serving as jserving
+    import repro_torch.serving as tserving
+    out = []
+    for core, serving, profs, intf in ((jcore, jserving, JPROFS, JINTF),
+                                       (tcore, tserving, TPROFS, TINTF)):
+        ctrl = _controller(core, serving, profs, intf)
+        res = ctrl._reschedule({"res": 100.0}, {"res": 100.0})
+        out.append((plain(res), dict(ctrl.scheduled_rates),
+                    ctrl._needs_reschedule({"res": 112.0}),
+                    ctrl._needs_reschedule({"res": 130.0})))
+    assert out[0] == out[1]
+    _, rates, at_112, at_130 = out[1]
+    assert rates["res"] >= 100.0 * 1.05 - 1e-9
+    assert not at_112 and at_130
+
+
+def _records(recs):
+    return [(r.t_start_s, r.ewma_rates, r.observed_rates, r.rescheduled,
+             r.used_partition_total, dataclasses.asdict(r.metrics))
+            for r in recs]
+
+
+def test_period_records_align_with_engine_windows_identical():
+    import repro.serving as jserving
+    import repro_torch.serving as tserving
+    out = []
+    for core, serving, profs, intf in ((jcore, jserving, JPROFS, JINTF),
+                                       (tcore, tserving, TPROFS, TINTF)):
+        ctrl = _controller(core, serving, profs, intf, seed=7)
+        recs = ctrl.run({"res": lambda t: 100.0}, horizon_s=50.0)
+        out.append((_records(recs), ctrl.engine.window_obs))
+    assert out[0] == out[1]
+    recs, obs = out[1]
+    assert len(recs) == len(obs) == 3 and recs[-1][0] == 40.0
+    assert all(r[2].get("res", 0.0) > 0.0 for r in recs)
+
+
+def test_controller_adapts_partitions_identical():
+    import math
+
+    import repro.serving as jserving
+    import repro_torch.serving as tserving
+
+    def wave(t):
+        return 120.0 + 500.0 * math.exp(-((t - 150) / 60) ** 2)
+
+    out = []
+    for core, serving, profs, intf in ((jcore, jserving, JPROFS, JINTF),
+                                       (tcore, tserving, TPROFS, TINTF)):
+        ctrl = _controller(core, serving, profs, intf, seed=3)
+        out.append(_records(ctrl.run({"res": wave, "goo": lambda t: 80.0},
+                                     horizon_s=300)))
+    assert out[0] == out[1]
+    recs = out[1]
+    used = [r[4] for r in recs]
+    assert len(recs) == 15 and max(used) > used[0]
+    tot = sum(r[5]["total"] for r in recs)
+    assert sum(r[5]["slo_violations"] for r in recs) / tot < 0.03
+    assert any(r[3] for r in recs[1:])
+
+
 #: modules copied byte for byte apart from their imports
 COPIES = ("core/profiles.py", "core/latency.py", "core/gpulet.py",
           "core/interference.py", "core/scheduler_base.py", "core/elastic.py",
-          "core/sbp.py", "core/selftuning.py", "simulator/events.py",
-          "simulator/metrics.py")
+          "core/sbp.py", "core/selftuning.py", "core/ideal.py",
+          "simulator/events.py", "simulator/metrics.py",
+          "serving/controller.py")
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\b", re.M)
 
 
