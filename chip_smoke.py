@@ -18,7 +18,10 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    ``tests/test_kernels.py`` (bf16 attention: relative to each output
    row's RMS, see ``TOL``): flash and decode attention at yi-9b's,
    recurrentgemma-2b's and stablelm-12b's (Dh 160) head shapes (bf16 and
-   fp32, S 1000 and a ragged S), the SSD scan (bf16 and fp32 inputs, S
+   fp32, S 1000 and a ragged S), flash at hubert-xlarge's (Dh 80, not
+   causal, S 1000, 512, 77) and internvl2-76b's (H64 / Hkv 8 at S 2024,
+   its 1024 patches before a 1000-token prompt) and decode attention at
+   internvl2-76b's (a cache of 2056 slots), the SSD scan (bf16 and fp32 inputs, S
    1000, 512 and the chunk edges 1, 63, 64, 65, with and without an
    initial state, B / C as slices of one projection) and the RG-LRU scan
    (the same, and S 4096);
@@ -34,19 +37,24 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    steps, at full width: yi-9b, stablelm-12b, chatglm3-6b, mamba2-780m
    and deepseek-moe-16b (2 layers) and recurrentgemma-2b (3 layers, one
    (rglru, rglru, attn) unit; also one 2100-token prompt, so that the
-   2048-slot local ring wraps); for deepseek-moe-16b first the routing:
+   2048-slot local ring wraps); hubert-xlarge (2 layers, one forward over
+   1000 and 77 frames, no decode step) and internvl2-76b (2 layers, 1024
+   patches before the prompt); for deepseek-moe-16b first the routing:
    each token's top-k experts in every MoE layer on the card against the
    CPU's, every differing decision printed with the CPU's probability gap
    there, and a difference at a gap above ``ROUTING_GAP`` fails;
 5. serve: ``repro_torch.serving.executor`` on yi-9b, mamba2-780m,
-   recurrentgemma-2b, stablelm-12b, chatglm3-6b and deepseek-moe-16b at
-   full width (all layers, bf16): 8 requests, batch 4, prompts of 512 and
-   1000 tokens, 32
+   recurrentgemma-2b, stablelm-12b, chatglm3-6b, deepseek-moe-16b and
+   hubert-xlarge at full width and depth, and internvl2-76b at full width
+   and 24 of its 80 layers (``LAYERS``: 141 GB of bf16 weights do not fit
+   the card), bf16: 8 requests, batch 4, prompts of 512 and 1000 tokens
+   (internvl2-76b's behind 1024 patch embeddings; hubert-xlarge's clips
+   of 512 and 1000 frame embeddings, answered with a label per frame), 32
    output tokens each; every request answered with in-vocab tokens, all
    logits finite, and each kernel's launch count (set to 0 before each
    model's serve, read after it) exactly one per layer of its kind per
-   prefill batch (flash, SSD scan, RG-LRU scan) or per decode step (decode
-   attention);
+   prefill (or encoder forward) batch (flash, SSD scan, RG-LRU scan) or
+   per decode step (decode attention);
 6. partitions (``repro_torch.launch``): each of the three carves of the
    card's SMs (green contexts) that realise the paper's five splits, with
    its granted SMs, proven disjoint by the ``%smid`` probe; the four
@@ -62,7 +70,10 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    names), written to
    ``results/out/h100_lbp.jsonl`` and printed as a table, with the decode
    kernel's launch count (set to 0 before the grid, read after it) exactly
-   one per attention (or MoE) layer per eager or captured step; the check
+   one per attention (or MoE) layer per eager or captured step;
+   hubert-xlarge's forward (1024 frames a clip, batch 8) captured and
+   replayed on 24 SMs beside its committed L(b, p) cell (fails outside
+   ``FORWARD_BAND`` of it); the check
    that no side of a split is priced from more SMs than it gets; and, from
    the grid just measured, Elastic Partitioning's and SBP's largest
    schedulable multiple of the mix on 4 cards, and a replay of the
@@ -106,6 +117,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -125,12 +137,36 @@ PARITY_REL = 1e-3  # model parity: max |card - cpu| <= 1e-3 * max |cpu|
 # where the CPU's probabilities of the two are within this of each other
 ROUTING_GAP = 1e-5
 SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b", "stablelm-12b",
-          "chatglm3-6b", "deepseek-moe-16b")
-# the attention head shapes served: (H, Hkv, Dh, window)
-HEADS = {"yi-9b": (32, 4, 128, None), "recurrentgemma-2b": (10, 1, 256, 2048),
-         "stablelm-12b": (32, 8, 160, None),
-         "chatglm3-6b": (32, 2, 128, None),
-         "deepseek-moe-16b": (16, 16, 128, None)}
+          "chatglm3-6b", "deepseek-moe-16b", "hubert-xlarge", "internvl2-76b")
+# depth served where the full model does not fit the card (80 GB):
+# internvl2-76b's 80 layers are 141 GB of bf16 weights, 24 are 45.3 GB
+LAYERS = {"internvl2-76b": 24}
+
+
+class Heads(NamedTuple):
+    """An arch's attention as the serve runs it: heads, head dim, window,
+    mask, the prefill length of a 1000-token prompt (a VLM's patches
+    before it) and the decode cache's slots (None: no decode step)."""
+    h: int
+    hkv: int
+    dh: int
+    window: int | None = None
+    causal: bool = True
+    s: int = 1000
+    slots: int | None = 1032
+
+
+HEADS = {"yi-9b": Heads(32, 4, 128),
+         "recurrentgemma-2b": Heads(10, 1, 256, 2048),
+         "stablelm-12b": Heads(32, 8, 160),
+         "chatglm3-6b": Heads(32, 2, 128),
+         "deepseek-moe-16b": Heads(16, 16, 128),
+         "hubert-xlarge": Heads(16, 16, 80, causal=False, slots=None),
+         "internvl2-76b": Heads(64, 8, 128, s=1024 + 1000,
+                                slots=1024 + 1000 + 32)}
+# the encoder's forward on the smallest partition (phase 6): its batch, and
+# the band around its committed L(b, 20%) outside which the run fails
+FORWARD_BATCH, FORWARD_BAND = 8, (0.5, 2.0)
 ROOT = Path(__file__).resolve().parent
 LBP_OUT = ROOT / "results/out/h100_lbp.jsonl"
 # the committed tables the interference phase compares with and replays
@@ -336,9 +372,9 @@ def sass_counts(build):
         if not n_mma or not n_tma:
             raise AssertionError(f"flash bf16 Dh {m.group(1)} has no "
                                  "tensor-core or TMA instruction")
-    if found != 4:
+    if found != 5:
         raise AssertionError(f"found {found} bf16 flash instantiations in "
-                             "the SASS, expected 4 (Dh 64/128/160/256)")
+                             "the SASS, expected 5 (Dh 64/80/128/160/256)")
 
 
 def _randn(gen, *shape, dtype):
@@ -362,25 +398,32 @@ def kernels_attention(gen, errs):
 
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).removeprefix("torch.")
-        for b, h, hkv, s, dh, window in [(4, 32, 4, 512, 128, None),
-                                         (4, 32, 4, 1000, 128, None),
-                                         (4, 32, 2, 1000, 128, None),
-                                         (4, 32, 4, 512, 128, 128),
-                                         (4, 16, 4, 1000, 64, None),
-                                         (4, 10, 1, 1000, 256, 2048),
-                                         (1, 10, 1, 2100, 256, 2048),
-                                         (2, 10, 1, 1000, 256, 128),
-                                         (4, 32, 8, 1000, 160, None),
-                                         (2, 32, 8, 77, 160, None),
-                                         (4, 16, 16, 1000, 128, None)]:
+        for b, h, hkv, s, dh, window, causal in [
+                (4, 32, 4, 512, 128, None, True),
+                (4, 32, 4, 1000, 128, None, True),
+                (4, 32, 2, 1000, 128, None, True),
+                (4, 32, 4, 512, 128, 128, True),
+                (4, 16, 4, 1000, 64, None, True),
+                (4, 10, 1, 1000, 256, 2048, True),
+                (1, 10, 1, 2100, 256, 2048, True),
+                (2, 10, 1, 1000, 256, 128, True),
+                (4, 32, 8, 1000, 160, None, True),
+                (2, 32, 8, 77, 160, None, True),
+                (4, 16, 16, 1000, 128, None, True),
+                (4, 16, 16, 1000, 80, None, False),   # hubert-xlarge
+                (4, 16, 16, 512, 80, None, False),
+                (2, 16, 16, 77, 80, None, False),
+                (4, 64, 8, 2024, 128, None, True)]:   # internvl2-76b
             q, k, v = flash_inputs(b, h, hkv, s, dh, dtype)
-            got = fl.flash_attention_cuda(q, k, v, causal=True, window=window)
-            want = fl.flash_attention_torch(q, k, v, causal=True,
+            got = fl.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window)
+            want = fl.flash_attention_torch(q, k, v, causal=causal,
                                             window=window)
             torch.cuda.synchronize()
             errs["flash_attention"] = max(errs["flash_attention"], check_close(
-                f"flash {tag} B{b} H{h}/{hkv} S{s} Dh{dh} causal "
-                f"window={window}", got, want, dtype))
+                f"flash {tag} B{b} H{h}/{hkv} S{s} Dh{dh} "
+                f"{'causal' if causal else 'non-causal'} window={window}",
+                got, want, dtype))
         for b, h, hkv, s, dh, window, lens in [
                 (4, 32, 4, 1032, 128, None, [1, 516, 1032, 1001]),
                 (4, 32, 4, 1032, 128, 256, [1032, 700, 255, 1]),
@@ -390,7 +433,8 @@ def kernels_attention(gen, errs):
                 (4, 32, 8, 1032, 160, None, [1, 516, 1032, 1001]),
                 (2, 32, 8, 77, 160, None, [77, 40]),
                 (4, 32, 2, 1032, 128, None, [1032, 1, 700, 1025]),
-                (4, 16, 16, 1032, 128, None, [1032, 77, 1, 1026])]:
+                (4, 16, 16, 1032, 128, None, [1032, 77, 1, 1026]),
+                (4, 64, 8, 2056, 128, None, [2056, 1549, 1, 2025])]:
             q, kc, vc, lengths = decode_inputs(b, h, hkv, s, dh, lens, dtype)
             got = dec.decode_attention_cuda(q, kc, vc, lengths, window=window)
             want = dec.decode_attention_torch(q, kc, vc, lengths,
@@ -476,38 +520,47 @@ def phase_kernels() -> dict:
     dtype, item = torch.bfloat16, 2
     records = {}
 
-    # prefill attention: the serve's 1000-token batches of 4
-    for path, (h, hkv, dh, window) in HEADS.items():
-        b, s = 4, 1000
+    # prefill attention: the serve's 1000-token batches of 4 (a VLM's
+    # behind its patches)
+    for path, (h, hkv, dh, window, causal, s, _) in HEADS.items():
+        b = 4
         nbytes = item * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
         sets = copies(lambda: flash_inputs(b, h, hkv, s, dh, dtype), nbytes)
         lib_sets = [(q, _repeat_kv(k.transpose(1, 2), h).transpose(1, 2),
                      _repeat_kv(v.transpose(1, 2), h).transpose(1, 2))
                     for q, k, v in sets]
-        ms = time_ms(lambda q, k, v: fl.flash_attention_cuda(
-            q, k, v, window=window), sets, 30)
-        dev_ms = device_ms(lambda q, k, v: fl.flash_attention_cuda(
-            q, k, v, window=window), sets, 30)
+
+        def kernel(q, k, v):
+            return fl.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window)
+
+        def sdpa(q, k, v):
+            # within the window (S < 2048) causal and windowed are one mask
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        ms = time_ms(kernel, sets, 30)
+        dev_ms = device_ms(kernel, sets, 30)
         plain_ms = time_ms(lambda q, k, v: fl.flash_attention_torch(
-            q, k, v, window=window), sets[:2], 5)
-        # within the window (S < 2048) causal and windowed are one mask
-        sdpa_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), lib_sets, 30)
-        sdpa_dev = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), lib_sets, 30)
-        bound = bound_ms(nbytes, 4 * dh * live_pairs(s, True, window) * b * h,
+            q, k, v, causal=causal, window=window), sets[:2], 5)
+        sdpa_ms = time_ms(sdpa, lib_sets, 30)
+        sdpa_dev = device_ms(sdpa, lib_sets, 30)
+        bound = bound_ms(nbytes,
+                         4 * dh * live_pairs(s, causal, window) * b * h,
                          dtype)
         records["flash_attention", path] = record(
             "flash_attention", path,
-            f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} causal window={window}",
+            f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} "
+            f"{'causal' if causal else 'non-causal'} window={window}",
             errs["flash_attention"], ms, plain_ms, bound, sdpa_ms)
         records["flash_attention", path].update(device_ms=dev_ms,
                                                 library_device_ms=sdpa_dev)
         del sets, lib_sets
 
     # decode attention: the cache of the serve's 1000-token batches
-    for path, (h, hkv, dh, window) in HEADS.items():
-        b, s = 4, 1032
+    for path, (h, hkv, dh, window, _, _, s) in HEADS.items():
+        if s is None:
+            continue  # an encoder: no decode step
+        b = 4
         lens = [s] * b
         nbytes = item * (2 * sum(lens) * hkv * dh + 2 * b * h * dh)
         sets = copies(lambda: decode_inputs(b, h, hkv, s, dh, lens, dtype),
@@ -608,8 +661,10 @@ def split_sweep(decode_inputs):
     log("  decode_attention us per call by splits, queued on the card / "
         "called back to back (CUDA events); bf16, B4, all slots valid; "
         "* = split_plan:")
-    for path, (h, hkv, dh, window) in HEADS.items():
-        for s in (1032, 2048):
+    for path, (h, hkv, dh, window, _, _, slots) in HEADS.items():
+        if slots is None:
+            continue  # an encoder: no decode step
+        for s in sorted({slots, 2048}):
             b = 4
             nbytes = 2 * (2 * b * s * hkv * dh + 2 * b * h * dh)
             sets = copies(lambda: decode_inputs(b, h, hkv, s, dh, [s] * b,
@@ -702,8 +757,11 @@ def check_routing(arch, card, cpu, seen_card, seen_cpu):
 
 def parity(arch: str, n_layers: int, runs):
     """Card vs CPU, fp32, full width, ``n_layers`` layers.  ``runs``:
-    (batch, prompt length) pairs; each prefills and decodes 3 tokens.  An
-    MoE model's routing is compared first."""
+    (batch, prompt length) pairs; each prefills (a VLM's patches before
+    the prompt) and decodes 3 tokens, or, for an encoder, runs one forward
+    over that many frames.  An MoE model's routing is compared first.
+    Patches and frames are numpy normals from the same seed as the
+    prompt."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
@@ -714,16 +772,34 @@ def parity(arch: str, n_layers: int, runs):
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     seen_card, seen_cpu = moe_inputs(card), moe_inputs(cpu)
     mods = counters()
+    n_patches = cfg.n_frontend_tokens if cfg.arch_type == "vlm" else 0
+    decode_steps = 3 if cfg.has_decoder else 0
     for b, s in runs:
-        log(f"  {arch}, {n_layers} layers, B{b} prompt {s}:")
-        toks = torch.from_numpy(np.random.default_rng(s).integers(
-            0, cfg.vocab_size, (b, s + 3)))
+        log(f"  {arch}, {n_layers} layers, B{b} "
+            + (f"{n_patches} patches + " if n_patches else "")
+            + (f"prompt {s}:" if cfg.has_decoder else f"{s} frames:"))
+        rng = np.random.default_rng(s)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 3)))
         before = {k: m.launches for k, m in mods.items()}
         with torch.inference_mode():
-            c_card, c_cpu = card.init_cache(b, s + 3), cpu.init_cache(b, s + 3)
-            outs = [(card.prefill(toks[:, :s].cuda(), c_card),
-                     cpu.prefill(toks[:, :s], c_cpu))]
-            for i in range(s, s + 3):
+            if not cfg.has_decoder:
+                frames = torch.from_numpy(rng.standard_normal(
+                    (b, s, cfg.d_model), np.float32))
+                outs = [((card.forward(frame_embeds=frames.cuda()), None),
+                         (cpu.forward(frame_embeds=frames), None))]
+            else:
+                patches = (torch.from_numpy(rng.standard_normal(
+                    (b, n_patches, cfg.d_model), np.float32))
+                    if n_patches else None)
+                size = n_patches + s + 3
+                c_card, c_cpu = card.init_cache(b, size), cpu.init_cache(
+                    b, size)
+                outs = [(card.prefill(toks[:, :s].cuda(), c_card,
+                                      patch_embeds=None if patches is None
+                                      else patches.cuda()),
+                         cpu.prefill(toks[:, :s], c_cpu,
+                                     patch_embeds=patches))]
+            for i in range(s, s + decode_steps):
                 (_, c_card), (_, c_cpu) = outs[-1]
                 outs.append((card.decode_step(c_card,
                                               toks[:, i:i + 1].cuda()),
@@ -736,18 +812,19 @@ def parity(arch: str, n_layers: int, runs):
         for step, ((got, _), (want, _)) in enumerate(outs):
             err = float((got.cpu() - want).abs().max())
             scale = float(want.abs().max())
-            log(f"    {'prefill' if step == 0 else f'decode {step}'}: max abs"
-                f" err {err:.3e} = {err / scale:.2e} of max |logit| "
-                f"{scale:.3f}")
+            what = ("forward" if not cfg.has_decoder else "prefill"
+                    if step == 0 else f"decode {step}")
+            log(f"    {what}: max abs err {err:.3e} = {err / scale:.2e} of "
+                f"max |logit| {scale:.3f}")
             if not err <= PARITY_REL * scale:
                 raise AssertionError(f"{arch}: card and CPU logits disagree")
         rose = {k: m.launches - before[k] for k, m in mods.items()}
-        want = expected_launches(cfg, 1, 3)
+        want = expected_launches(cfg, 1, decode_steps)
         log(f"    kernel launches {rose}")
         if rose != want:
             raise AssertionError(f"{arch}: parity run did not go through "
                                  f"the kernels: {rose}, expected {want}")
-        del outs, c_card, c_cpu
+        del outs
     del card, cpu
     torch.cuda.empty_cache()
 
@@ -760,27 +837,34 @@ def phase_parity():
     parity("mamba2-780m", 2, [(2, 77)])
     parity("deepseek-moe-16b", 2, [(2, 77)])
     parity("recurrentgemma-2b", 3, [(2, 77), (1, 2100)])
+    parity("hubert-xlarge", 2, [(2, 1000), (1, 77)])
+    parity("internvl2-76b", 2, [(2, 77)])
 
 
 def serve_one(arch: str, records: dict):
     from repro_torch.configs import get_config
     from repro_torch.serving import executor
 
+    layers = LAYERS.get(arch)
     cfg = get_config(arch)
-    log(f"  {arch} ({cfg.n_layers} layers):")
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+    log(f"  {arch} ({cfg.n_layers} layers"
+        + (f" of {get_config(arch).n_layers}" if layers else "") + "):")
     mods = counters()
     torch.cuda.reset_peak_memory_stats()
     for m in mods.values():
         m.launches = 0
     rep = executor.serve(arch, requests=8, batch=4, prompt_lens=(512, 1000),
-                         output_len=32, seed=0, device="cuda")
+                         output_len=32, seed=0, device="cuda",
+                         n_layers=layers)
     counts = {k: m.launches for k, m in mods.items()}
-    if len(rep.results) != 8 or not all(
-            len(r.tokens) == 32 and all(0 <= t < cfg.vocab_size
-                                        for t in r.tokens)
-            for r in rep.results):
-        raise AssertionError(f"{arch}: a request was not answered with 32 "
-                             "tokens")
+    # a clip is answered with a label per frame, a prompt with 32 tokens
+    lengths = ([512, 1000] * 4 if rep.encoder else [32] * 8)
+    if [len(r.tokens) for r in rep.results] != lengths or not all(
+            0 <= t < cfg.vocab_size for r in rep.results for t in r.tokens):
+        what = "a label per frame" if rep.encoder else "32 tokens"
+        raise AssertionError(f"{arch}: a request was not answered with "
+                             f"{what}")
     if not rep.all_finite:
         raise AssertionError(f"{arch}: non-finite logits")
     want = expected_launches(cfg, rep.prefill_batches, rep.decode_steps)
@@ -794,10 +878,18 @@ def serve_one(arch: str, records: dict):
         elif n:
             raise AssertionError(f"{arch}: {name} launched but not timed")
     s = rep.summary()
-    log(f"    TTFT p50 {s['ttft_ms_p50']:.1f} ms (max "
-        f"{s['ttft_ms_max']:.1f}), decode {s['decode_ms_per_step']:.2f} "
-        f"ms/step, {s['tokens_per_s']:.1f} tokens/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    peak = f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB"
+    if rep.encoder:
+        log(f"    {s['ms_per_batch']:.1f} ms a batch of 4 clips "
+            f"({', '.join(f'{t:.1f}' for t in rep.batch_ms)}), "
+            f"{s['frames_per_s']:.0f} frames/s, labels out p50 "
+            f"{s['ttft_ms_p50']:.1f} ms (max {s['ttft_ms_max']:.1f}), {peak}")
+    else:
+        log(f"    TTFT p50 {s['ttft_ms_p50']:.1f} ms (max "
+            f"{s['ttft_ms_max']:.1f}), decode {s['decode_ms_per_step']:.2f}"
+            f" ms/step, {s['tokens_per_s']:.1f} tokens/s, {peak}")
+    for cut in s["reduced"]:
+        log(f"    reduced: {cut}")
     log(f"    request 0 tokens: {rep.results[0].tokens[:8]} ...")
     del rep
     torch.cuda.empty_cache()
@@ -805,7 +897,8 @@ def serve_one(arch: str, records: dict):
 
 def phase_serve(records: dict):
     log("[5] serve at full width (bf16), 8 requests, batch 4, prompts "
-        "512/1000, 32 output tokens")
+        "512/1000 (internvl2-76b's behind 1024 patches; hubert-xlarge's "
+        "clips of 512/1000 frames), 32 output tokens")
     for arch in SERVED:
         serve_one(arch, records)
     missing = [k for k, r in records.items() if "launches" not in r]
@@ -860,23 +953,26 @@ def kernels_on_partition(part, records: dict, errs: dict):
         with part:
             return time_ms(fn, sets, iters)
 
-    for path, (h, hkv, dh, window) in HEADS.items():
-        b, s = 4, 1000
+    for path, (h, hkv, dh, window, causal, s, slots) in HEADS.items():
+        b = 4
+        mask = dict(causal=causal, window=window)
         q, k, v = (_randn(gen, b, s, n, dh, dtype=dtype).transpose(1, 2)
                    for n in (h, hkv, hkv))
-        got = both(fl.flash_attention_cuda, q, k, v, window=window)
+        got = both(fl.flash_attention_cuda, q, k, v, **mask)
         errs["flash_attention"] = max(errs["flash_attention"], check_close(
-            f"flash {tag} bf16 B{b} H{h}/{hkv} S{s} Dh{dh}", got,
-            fl.flash_attention_torch(q, k, v, window=window), dtype))
+            f"flash {tag} bf16 B{b} H{h}/{hkv} S{s} Dh{dh} {mask}", got,
+            fl.flash_attention_torch(q, k, v, **mask), dtype))
         sets = copies(lambda: tuple(
             _randn(gen, b, s, n, dh, dtype=dtype).transpose(1, 2)
             for n in (h, hkv, hkv)), 2 * (2 * b * h * s * dh
                                           + 2 * b * hkv * s * dh))
         records["flash_attention", path]["partition_ms"] = time_on_part(
-            lambda q, k, v: fl.flash_attention_cuda(q, k, v, window=window),
+            lambda q, k, v: fl.flash_attention_cuda(q, k, v, **mask),
             sets, 30)
         del sets
-        s = 1032
+        if slots is None:
+            continue  # an encoder: no decode step
+        s = slots
         lens = [s, 1, 517, 1000]
         q = _randn(gen, b, h, dh, dtype=dtype)
         kc, vc = (_randn(gen, b, s, hkv, dh, dtype=dtype) for _ in range(2))
@@ -1052,6 +1148,7 @@ def phase_partitions(records: dict):
     # the grid's own record: yi-9b's shape, measured in phases 3 and 6
     records["decode_attention", "lbp-grid"] = dict(
         dec, path="lbp-grid", launches=counts["decode_attention"])
+    forward_on_partition(part_mod.partition(min(PARTITION_SIZES)))
 
     # C.3: every side of every split priced from no more SMs than it gets
     priced = {r["percent"]: r["sms"] for r in grid}
@@ -1082,6 +1179,37 @@ def phase_partitions(records: dict):
     if not rep["conserved"] or rep["total"] == 0:
         raise AssertionError("the replay lost requests")
     return grid
+
+
+def forward_on_partition(part, arch: str = "hubert-xlarge"):
+    """The encoder's L(b, p) cell on ``part``: its forward (full depth and
+    width, bf16, ``FRAMES`` frames a clip) at ``FORWARD_BATCH``, captured
+    and replayed there as ``launch/profile_partitions.py`` measures it,
+    beside the committed file's cell; a time outside ``FORWARD_BAND`` of
+    it, or on another SM count, fails."""
+    from repro_torch.launch import profile_partitions as pp
+    committed = [json.loads(line)
+                 for line in COMMITTED["lbp"].read_text().splitlines()]
+    was = [r for r in committed if (r["arch"], r["percent"], r["batch"])
+           == (arch, part.percent, FORWARD_BATCH)]
+    if len(was) != 1 or was[0].get("step") != "forward":
+        raise AssertionError(f"{COMMITTED['lbp']}: no forward cell of {arch}"
+                             f" at {part.percent}%, batch {FORWARD_BATCH}")
+    was = was[0]
+    model = pp.build(arch, device="cuda")
+    rec, = pp.measure(model, arch, [FORWARD_BATCH], [part], seed=0,
+                      device=torch.device("cuda"), ident=pp.card_identity(),
+                      log=lambda line: log("  " + line))
+    ratio = rec["step_ms"] / was["step_ms"]
+    log(f"  {arch} forward b{FORWARD_BATCH} x {rec['frames']} frames on "
+        f"{rec['sms']} SMs: {rec['step_ms']:.3f} ms, committed "
+        f"{was['step_ms']:.3f} ms on {was['sms']} SMs (x{ratio:.3f})")
+    if rec["sms"] != was["sms"] or not (
+            FORWARD_BAND[0] <= ratio <= FORWARD_BAND[1]):
+        raise AssertionError(f"{arch}: its forward on {part.percent}% is "
+                             "not the committed cell's")
+    del model
+    torch.cuda.empty_cache()
 
 
 def launch_queue(arch: str, graph, part, n: int = 20):

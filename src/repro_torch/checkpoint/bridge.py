@@ -71,10 +71,12 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
                     device="cuda") -> Model:
     """A port ``Model`` holding the JAX parameters ``tree``.
 
-    The model dtype is that of the token embedding, as JAX's ``Model``
-    keeps norms in fp32 and everything else in its dtype.
+    The model dtype is that of the token embedding (the classification
+    ``head`` of the audio encoder, which has no embedding), as JAX's
+    ``Model`` keeps norms in fp32 and everything else in its dtype.
     """
-    dtype = _to_torch(_leaf(tree, "embed/tok")).dtype
+    dtype = _to_torch(_leaf(tree, "embed/tok" if "embed" in tree
+                            else "head")).dtype
     model = Model(cfg, dtype=dtype, device=device)
     kinds = cfg.layer_types()
     stacked = all(k == kinds[0] for k in kinds)  # JAX's is_homogeneous

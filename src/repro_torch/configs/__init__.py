@@ -3,9 +3,8 @@
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` returns a reduced variant of the same family
 (<=2 layers, d_model<=512, <=4 experts) for CPU smoke tests.  Both behave
-as the JAX package's ``configs`` do.  The dense, MoE, SSM and hybrid
-configs are ported; the others name the slice of the port that brings
-them.
+as the JAX package's ``configs`` do.  Every architecture of the JAX
+package is ported.
 """
 from __future__ import annotations
 
@@ -26,10 +25,7 @@ ARCH_IDS = (
 )
 
 # arch id -> the slice of the port that brings its config and model code
-NOT_YET_PORTED = {
-    "internvl2-76b": "encoder/VLM",
-    "hubert-xlarge": "encoder/VLM",
-}
+NOT_YET_PORTED: dict[str, str] = {}
 
 
 def _module(arch_id: str):

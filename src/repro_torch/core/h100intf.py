@@ -59,7 +59,8 @@ def param_count(cfg) -> tuple[int, int]:
     model dtype."""
     d, v = cfg.d_model, cfg.padded_vocab
     norm = d * (2 if cfg.norm == "layernorm" else 1)
-    wide, fp32 = 2 * v * d, norm  # embedding and head; the final norm
+    # embedding and head (the audio encoder: its head alone); final norm
+    wide, fp32 = (1 if cfg.arch_type == "audio" else 2) * v * d, norm
     for kind in cfg.layer_types():
         fp32 += norm
         if kind in ATTN_KINDS:
@@ -87,17 +88,26 @@ def param_count(cfg) -> tuple[int, int]:
 
 def step_bytes(cfg, batch: int, ctx: int, dtype_bytes: int = 2) -> dict:
     """Bytes one decode step at ``batch`` moves with ``ctx`` positions
-    cached: each read once, each write once.
+    cached, or, for an encoder-only ``cfg`` (no decode step), one forward
+    over ``ctx`` frames: each read once, each write once.
 
     ``weights``: every parameter but the token-embedding table (an MoE
-    step reads every expert: its dispatch buffer has rows for each).
+    step reads every expert: its dispatch buffer has rows for each); an
+    encoder's every parameter, its head included.
     ``per_request``: one row of that table, the cache or state the step
     reads (K and V of ``ctx`` + 1 positions, the new one included, a
     hybrid's at most its window; the SSM and RG-LRU conv and recurrent
-    states) and what it writes (one K and V slot; the new states).
+    states) and what it writes (one K and V slot; the new states); an
+    encoder's ``ctx`` x d_model frame inputs and ``ctx`` x padded_vocab
+    logits.
     ``total`` = weights + batch x per_request."""
     wide, fp32 = param_count(cfg)
     d = cfg.d_model
+    if not cfg.has_decoder:
+        weights = wide * dtype_bytes + fp32 * 4
+        per_req = ctx * (d + cfg.padded_vocab) * dtype_bytes
+        return {"weights": weights, "per_request": per_req,
+                "total": weights + batch * per_req}
     weights = (wide - cfg.padded_vocab * d) * dtype_bytes + fp32 * 4
     per_req = d * dtype_bytes
     for kind in cfg.layer_types():

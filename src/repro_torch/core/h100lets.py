@@ -24,6 +24,11 @@ smooths it nor makes it monotone.  A batch between two measured sizes runs
 as the next measured size up (the graph captured at that batch, padded),
 so its latency is that cell's.  SLOs follow the paper's convention, as
 ``tpulets`` does: 2x the solo full-card latency at batch 32.
+
+A decoder's L(b, p) is a decode step.  An encoder-only arch
+(hubert-xlarge) has none: as ``tpulets.load_catalog`` schedules it by its
+prefill record, it is scheduled here by its ``forward`` records (one
+forward of 1024 frames a request), with the same SLO convention.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import dataclasses
 import json
 from bisect import bisect_left
 
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.latency import (PARTITION_SIZES, SPLIT_PAIRS,
                                       LatencyProvider)
 from repro_torch.core.profiles import ModelProfile
@@ -46,6 +52,12 @@ MIX = {"yi-9b": 1.0, "chatglm3-6b": 1.0, "mamba2-780m": 4.0,
 #: the left percents of the carves that realise the paper's five splits:
 #: (20, 80) and (80, 20) are one carve, (40, 60) and (60, 40) another
 CARVES: tuple[int, ...] = (20, 40, 50)
+
+
+def step_kind(cfg) -> str:
+    """What L(b, p) times for ``cfg``: its decode step, or an
+    encoder-only arch's forward."""
+    return "decode" if cfg.has_decoder else "forward"
 
 
 def carve_of(percent: int, position: int = 0) -> tuple[int, str]:
@@ -85,12 +97,14 @@ class MeasuredLatency(LatencyProvider):
                  batch_sizes: tuple[int, ...] = LBP_BATCHES,
                  sms: dict[int, int] | None = None,
                  split_sms: dict[int, tuple[int, int]] | None = None,
-                 card: str = ""):
+                 card: str = "", steps: dict[str, str] | None = None):
         self.table = table
         self.batch_sizes = tuple(sorted(batch_sizes))
         self.sms = dict(sms or {})
         self.split_sms = dict(split_sms or {})
         self.card = card
+        # arch -> the step its L(b, p) times ("decode" or "forward")
+        self.steps = dict(steps or dict.fromkeys(table, "decode"))
 
     def latency_ms(self, prof: ModelProfile, batch: int, p: float) -> float:
         if batch <= 0:
@@ -181,14 +195,29 @@ def load_catalog(path: str) -> tuple[dict[str, ModelProfile],
     (``split_sms``, one set for the whole file), with one percent measured
     on two SM counts, or in which a side of a ``SPLIT_PAIRS`` split would
     be priced from more SMs than that side is granted.  Each arch's step
-    bytes (``weight_bytes``, ``bytes_per_req``) fill its profile."""
+    bytes (``weight_bytes``, ``bytes_per_req``) fill its profile.
+
+    A record's ``step`` (absent: a decode step) is what it timed; an arch
+    is timed by one kind of step, and an arch of the port's configs by its
+    own: a decoder by its decode step, an encoder-only arch by its
+    ``forward``."""
     table: dict[str, dict[tuple[int, int], float]] = {}
     cards, batches, sms, grants, sizes = set(), set(), {}, set(), {}
+    steps: dict[str, str] = {}
     with open(path) as f:
         for n, line in enumerate(f, 1):
             if not line.strip():
                 continue
             r = json.loads(line)
+            kind = r.get("step", "decode")
+            if steps.setdefault(r["arch"], kind) != kind:
+                raise ValueError(f"{path}:{n}: {r['arch']} is timed by "
+                                 f"both {kind} and {steps[r['arch']]} steps")
+            if r["arch"] in ARCH_IDS:
+                own = step_kind(get_config(r["arch"]))
+                if kind != own:
+                    raise ValueError(f"{path}:{n}: {r['arch']} is timed by "
+                                     f"its {own} step, not a {kind} step")
             cards.add((r["card"], r["power_limit_w"]))
             cell = (int(r["percent"]), int(r["batch"]))
             cells = table.setdefault(r["arch"], {})
@@ -233,4 +262,4 @@ def load_catalog(path: str) -> tuple[dict[str, ModelProfile],
     (card, power), = cards
     return _slo_profiles(MeasuredLatency(
         table, batch_sizes=tuple(sorted(batches)), sms=sms,
-        split_sms=split_sms, card=f"{card}, {power} W"), sizes)
+        split_sms=split_sms, card=f"{card}, {power} W", steps=steps), sizes)

@@ -16,7 +16,8 @@
 //     registers a thread) fits beside the score tile without spilling.
 //   * One thread of the producer warpgroup loads Q once and K / V tiles
 //     of BK keys (128 at Dh 64, else 64: at Dh 128 a 128-key score tile
-//     spilled, and the 64-key tile ran 5% faster on the card) by TMA into
+//     spilled, and the 64-key tile ran 5% faster on the card; Dh 80 has
+//     Dh 128's padded accumulator, so its tile too) by TMA into
 //     a two-stage ring in shared memory;
 //     each stage has a full barrier for K, one for V and an empty barrier
 //     that the consumers arrive on when both products are done.  The
@@ -29,6 +30,16 @@
 //     padded to 192 columns and TMA's out-of-bounds fill writes zeros
 //     there.  Q K^T runs its 10 k-steps over the 160 real columns only;
 //     P V runs at N = 192 and the 32 extra output columns are not stored.
+//   * Dh 80 (hubert-xlarge) the same way: the tile is padded to 128
+//     columns (two atoms, the second 16 real columns and 48 of zeros),
+//     Q K^T runs 5 k-steps over the 80 real columns, P V runs at N = 128
+//     and the 48 extra output columns are not stored.  So Dh 80 reuses Dh
+//     128's descriptors, wgmma shapes and register budget as they are.  A
+//     32-byte swizzle at 80 columns would move no padding through shared
+//     memory, but needs other descriptors and an N = 80 product from an
+//     MN-major V that no other head dim exercises; the padding costs
+//     shared memory and tensor-core work in P V (128 / 80 of it), not
+//     bytes from device memory (TMA's fill reads nothing).
 //   * S = Q K^T by wgmma with both operands in shared memory (K-major, as K
 //     lies).  The online softmax runs in fp32 registers on the
 //     accumulator layout (a row's columns on the 4 lanes of a quad: two
@@ -47,8 +58,9 @@
 //     the output strides.
 //
 // fp32 (the card-vs-CPU parity path): the CUDA-core kernel of the first
-// port, with Dh 160 added.  TF32 tensor cores would not meet the fp32
-// tolerance (1e-4 / 1e-5) of the JAX package's tests; the serve runs bf16.
+// port, with Dh 160 and Dh 80 added.  TF32 tensor cores would not meet the
+// fp32 tolerance (1e-4 / 1e-5) of the JAX package's tests; the serve runs
+// bf16.
 //   * grid (ceil(S / BQ), H, B); 128 threads; K/V tiles of 64 keys staged in
 //     shared memory; thread (ty, tx) owns R query rows and key columns
 //     tx + 8 j; R = 4 (BQ 64) up to Dh 128, R = 2 (BQ 32) at Dh 160 / 256.
@@ -264,7 +276,7 @@ struct Tile {
   static constexpr int CB = DP / 64;             // 64-column blocks
   static constexpr int NWG = D <= 160 ? 2 : 1;   // consumer warpgroups
   static constexpr int BQ = 64 * NWG;
-  static constexpr int BK = D < 128 ? 128 : 64;
+  static constexpr int BK = DP < 128 ? 128 : 64;
   static constexpr int STAGES = 2;
   static constexpr int THREADS = NWG * 128 + 128;  // + a producer warpgroup
   static constexpr uint32_t Q_BYTES = BQ * DP * 2;
@@ -883,6 +895,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                                  causal, window, scale, st);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   REPRO_FLASH_CASE(64)
+  REPRO_FLASH_CASE(80)
   REPRO_FLASH_CASE(128)
   REPRO_FLASH_CASE(160)
   REPRO_FLASH_CASE(256)

@@ -19,8 +19,9 @@ query tile of 128; 64 at Dh 256), two consumer warpgroups multiplying with
 producer warpgroup keeping K/V tiles in flight by TMA in a two-stage ring;
 the online softmax in fp32 registers; fully masked key tiles never loaded and
 only edge tiles masked; query tiles launched longest-first.  Dh 160
-(stablelm-12b) is padded to 192 columns in shared memory by TMA's zero
-fill.  fp32 inputs (the card-vs-CPU parity checks) run the CUDA-core
+(stablelm-12b) is padded to 192 columns and Dh 80 (hubert-xlarge) to 128
+in shared memory by TMA's zero fill.  hubert runs it non-causal: every
+key tile is live and only the ragged last one is masked.  fp32 inputs (the card-vs-CPU parity checks) run the CUDA-core
 kernel of the first port.  Any S works: the ragged last tile is masked in
 the kernel (the TPU kernel required S to be a multiple of its block).
 q/k/v/o are read and written through their strides, so the model's
@@ -40,7 +41,7 @@ from repro_torch.kernels import _build
 launches = 0  # launches of the CUDA kernel (plain-version calls not counted)
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 160, 256)
+HEAD_DIMS = (64, 80, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +

@@ -28,14 +28,24 @@ takes the decode step) on a partition of p% of the card's SMs
   * a step that cannot be captured raises: nothing falls back to the eager
     time, and a partition that cannot be made raises too.
 
+An encoder-only arch (hubert-xlarge) has no decode step: as the JAX
+package's ``core/tpulets.load_catalog`` schedules such an arch by its
+prefill record, its step here is one ``forward`` of ``FRAMES`` = 1024
+frame embeddings a request (about 20 s of 16 kHz audio at HuBERT's 20 ms
+frame stride; the same 1024 positions as a decode step's cache), drawn
+from the seeded generator, captured and replayed the same way.
+
 One JSON line per (arch, percent, batch): ``card`` and ``power_limit_w``
 (``nvidia-smi``), ``arch``, ``percent``, ``sms`` (granted), the ``carve``
 and ``side`` it ran on and every carve's granted (left, right) SMs
 (``split_sms``; ``core.h100lets.carve_of``: 60% is the right side of the
-40/60 carve, so each percent runs on one SM count), ``batch``, ``ctx``,
-the step's bytes (``weight_bytes``, ``bytes_per_req``:
-``core.h100intf.step_bytes``), ``step_ms`` with ``runs`` and ``run_ms``,
-``eager_wall_ms``, and the torch and CUDA versions.
+40/60 carve, so each percent runs on one SM count), ``batch``, ``step``
+(``"decode"`` or ``"forward"``) with ``ctx`` and ``cache_slots`` (a
+decode step's) or ``frames`` (a forward's), the step's bytes
+(``weight_bytes``, ``bytes_per_req``: ``core.h100intf.step_bytes``),
+``step_ms`` with ``runs`` and ``run_ms``, ``eager_wall_ms``, and the torch
+and CUDA versions.  (Records of the files committed before the forward
+step was measured carry no ``step``: they are decode steps.)
 
 ``--smoke --device cpu`` writes the same records for the smoke configs
 with every partition stubbed to the whole CPU and no graph: ``step_ms`` is
@@ -47,6 +57,7 @@ steps in flight at once on the two sides of a split (the co-run factors;
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -59,7 +70,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.h100intf import step_bytes
-from repro_torch.core.h100lets import CARVES, MIX, carve_of
+from repro_torch.core.h100lets import CARVES, MIX, carve_of, step_kind
 from repro_torch.core.latency import PARTITION_SIZES
 from repro_torch.models.model import Model
 
@@ -67,6 +78,7 @@ ARCHS = tuple(MIX)
 BATCHES = (1, 2, 4, 8, 16, 32)
 CTX = 1024          # valid cache positions before the measured step
 SLOTS = 1032        # cache slots: the step writes position CTX
+FRAMES = 1024       # frames a request of an encoder's forward step
 WARMUP = 3          # graph replays before the timed ones
 RUNS = 10           # timed replays; step_ms is their median
 EAGER_RUNS = 3      # timed eager steps (after one warm-up step)
@@ -107,6 +119,15 @@ def filled_cache(model: Model, batch: int, seed: int) -> tuple[dict, object]:
     return cache, tokens
 
 
+def frame_inputs(model: Model, batch: int, seed: int):
+    """(batch, ``FRAMES``, d_model) frame embeddings from a generator
+    seeded with ``seed``."""
+    from repro_torch.models.frontend import audio_frame_embeddings
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return audio_frame_embeddings(gen, batch, FRAMES, model.cfg,
+                                  device=model.device, dtype=model.dtype)
+
+
 class _WholeCPU:
     """The partition step stubbed to the whole CPU (``--device cpu``)."""
 
@@ -124,14 +145,14 @@ class _WholeCPU:
         pass
 
 
-def eager_wall_ms(model: Model, cache: dict, tokens, part,
-                  runs: int = EAGER_RUNS) -> float:
-    """Median host wall time of one eager decode step on ``part`` (its
-    context current), ending in a synchronise, after one warm-up step."""
+def eager_wall_ms(step, part, runs: int = EAGER_RUNS) -> float:
+    """Median host wall time of one eager call of ``step`` on ``part``
+    (its context current), ending in a synchronise, after one warm-up
+    call."""
     times = []
     for i in range(runs + 1):
         t0 = time.perf_counter()
-        model.decode_step(cache, tokens)
+        step()
         part.synchronize()
         if i:
             times.append((time.perf_counter() - t0) * 1e3)
@@ -158,6 +179,15 @@ def capture(model: Model, cache: dict, tokens, part):
     return graph, logits
 
 
+def capture_forward(model: Model, frames, part):
+    """An encoder's forward over ``frames`` captured as a CUDA graph on
+    ``part``'s stream (its context current).  Returns (graph, logits)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=part.stream):
+        logits = model.forward(frame_embeds=frames)
+    return graph, logits
+
+
 def replay_ms(graph, part, runs: int = RUNS,
               warmup: int = WARMUP) -> list[float]:
     """Each of ``runs`` replays of ``graph`` on ``part``, timed by CUDA
@@ -180,24 +210,33 @@ def measure(model: Model, arch: str, batches, parts, *, seed: int,
     """The (percent, batch) cells of one arch: one record each."""
     records = []
     versions = {"torch": torch.__version__, "cuda": torch.version.cuda}
-    nbytes = step_bytes(model.cfg, 1, CTX)
+    kind = step_kind(model.cfg)
+    forward = kind == "forward"
+    nbytes = step_bytes(model.cfg, 1, FRAMES if forward else CTX)
+    shape = ({"ctx": None, "cache_slots": None, "frames": FRAMES} if forward
+             else {"ctx": CTX, "cache_slots": SLOTS, "frames": None})
     for batch in batches:
         with torch.inference_mode():
-            cache, tokens = filled_cache(model, batch, seed)
+            # (frames,) of a forward, (cache, tokens) of a decode step
+            inputs = ((frame_inputs(model, batch, seed),) if forward
+                      else filled_cache(model, batch, seed))
+        step = (functools.partial(model.forward, frame_embeds=inputs[0])
+                if forward else functools.partial(model.decode_step, *inputs))
         for part in parts:
             with part, torch.inference_mode():
-                eager = eager_wall_ms(model, cache, tokens, part)
+                eager = eager_wall_ms(step, part)
                 run_ms = None
                 if device.type == "cuda":
-                    graph, _ = capture(model, cache, tokens, part)
+                    graph, _ = (capture_forward if forward else capture)(
+                        model, *inputs, part)
                     run_ms = replay_ms(graph, part)
                     graph.reset()
                     del graph
             rec = {"card": ident[0], "power_limit_w": ident[1],
                    "arch": arch, "percent": part.percent, "sms": part.sms,
                    "carve": part.carve, "side": part.side,
-                   "split_sms": split_sms, "batch": batch, "ctx": CTX,
-                   "cache_slots": SLOTS, "layers": model.cfg.n_layers,
+                   "split_sms": split_sms, "batch": batch, "step": kind,
+                   **shape, "layers": model.cfg.n_layers,
                    "dtype": "bfloat16",
                    "weight_bytes": nbytes["weights"],
                    "bytes_per_req": nbytes["per_request"],
@@ -209,11 +248,10 @@ def measure(model: Model, arch: str, batches, parts, *, seed: int,
                    "eager_wall_ms": eager, "eager_runs": EAGER_RUNS,
                    **versions}
             records.append(rec)
-            step = ("-" if rec["step_ms"] is None
-                    else f"{rec['step_ms']:.4f}")
+            ms = "-" if rec["step_ms"] is None else f"{rec['step_ms']:.4f}"
             log(f"    {arch} {part.percent}% ({part.sms} SMs) b{batch}: "
-                f"graph {step} ms, eager wall {eager:.2f} ms")
-        del cache, tokens
+                f"{kind} graph {ms} ms, eager wall {eager:.2f} ms")
+        del step, inputs
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return records

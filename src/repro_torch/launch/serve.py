@@ -56,7 +56,11 @@ it needs no card, and everything here runs on the CPU:
 
 A card's catalog serves the JAX package's mix (``core.h100lets.MIX``:
 yi-9b, chatglm3-6b, mamba2-780m, deepseek-moe-16b and recurrentgemma-2b
-at 1 : 1 : 4 : 1 : 2) unless ``--rates`` names another.
+at 1 : 1 : 4 : 1 : 2) unless ``--rates`` names another, which may name
+any arch of the catalog: hubert-xlarge, an encoder, is priced by its
+``forward`` records.  Interference is priced only for archs of the co-run
+table: asked for while ``--rates`` names another (the committed tables
+have no encoder), the call refuses and names it.
 
 The counterpart of the JAX package's ``launch/serve.py`` and of
 ``benchmarks/tpulet_serving.py::serve_end_to_end``.
@@ -330,7 +334,10 @@ def interference_tables(args, provider, rates):
                          f"{sorted(cards)}")
     missing = sorted(set(rates) - (set(corun.archs) & set(features.archs)))
     if missing:
-        raise SystemExit(f"{missing}: not in the co-run table and features")
+        raise SystemExit(
+            f"no co-run rows or features for {', '.join(missing)}: measured "
+            f"interference prices only {sorted(corun.archs)}; plan without "
+            "--corun and --features (replay with --no-interference)")
     dist = corun_summary(corun)
     print(f"co-run factors (Fig. 6), {dist['sides']} sides: "
           f"{dist['share_under_1.18'] * 100:.1f}% under x1.18, p10 "
@@ -392,7 +399,7 @@ def main(argv=None) -> int:
         print(f"  {arch:<20} SLO={prof.slo_ms:8.3f} ms  "
               f"L({SLO_BATCH},100%)="
               f"{provider.latency_ms(prof, SLO_BATCH, 1.0):8.3f} ms  "
-              f"rate={rates[arch]:g}/s")
+              f"rate={rates[arch]:g}/s  ({provider.steps[arch]} step)")
     print("max rate (req/s) under SLO / 2 by partition, and the knee "
           "p_eff (Alg. 1's max efficient partition):")
     for arch in rates:

@@ -1,14 +1,26 @@
 """The Model: config -> init / forward / prefill / decode.
 
-PyTorch counterpart of the JAX package's ``models/model.py`` for the dense
-decoders, the MoE decoders (deepseek-moe, arctic), the SSM (mamba2) and the
-hybrid (recurrentgemma).  The JAX ``Model`` is pure: parameters are a
-pytree passed to every method.  Here the parameters live in the
-``nn.Module`` and the methods take token tensors:
+PyTorch counterpart of the JAX package's ``models/model.py`` for every
+family: the dense decoders, the MoE decoders (deepseek-moe, arctic), the
+SSM (mamba2), the hybrid (recurrentgemma), the VLM (internvl) and the
+audio encoder (hubert).  The JAX ``Model`` is pure: parameters are a
+pytree passed to every method, and a batch is a dict.  Here the
+parameters live in the ``nn.Module`` and the methods take the batch's
+tensors as keyword arguments named by the JAX batch keys:
 
-  * ``forward(tokens)``: (B, S) -> logits (B, S, padded_vocab);
-  * ``prefill(tokens, cache)``: logits of the last position only;
+  * ``forward(tokens, patch_embeds=, frame_embeds=)``: logits (B, S,
+    padded_vocab) over the whole sequence;
+  * ``prefill(tokens, cache, patch_embeds=)``: logits of the last position
+    only;
   * ``decode_step(cache, tokens)``: tokens (B, 1) -> logits (B, 1, V).
+
+The inputs follow the JAX ``_embed_inputs``: a decoder embeds ``tokens``
+(B, S); a VLM puts its ``patch_embeds`` (B, N_patch, d_model) before them,
+so RoPE positions and the cache run over patches and text together (after
+a prefill the cache holds N_patch + S positions); the audio encoder has no
+token embedding and takes ``frame_embeds`` (B, T, d_model), attends
+without a causal mask (``cfg.causal``) and ends in its own classification
+``head`` (d_model, padded_vocab).  It has no decode step.
 
 ``cache["len"]`` is one Python int shared by the whole batch, so the decode
 loop never waits on the device to find its ring slot.  The per-layer
@@ -23,9 +35,10 @@ from torch import nn
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Embed, make_norm
+from repro_torch.models.layers import Embed, _param, make_norm
 
-SERVED = ("dense", "moe", "ssm", "hybrid")  # arch types the port serves
+# arch types the port serves
+SERVED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def resolve_device(device) -> torch.device:
@@ -49,8 +62,13 @@ class Model(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.embed = Embed(cfg.padded_vocab, cfg.d_model, device=self.device,
-                           dtype=dtype)
+        if cfg.arch_type == "audio":
+            # encoder-only: a classification head, no token embedding
+            self.head = _param((cfg.d_model, cfg.padded_vocab), self.device,
+                               dtype)
+        else:
+            self.embed = Embed(cfg.padded_vocab, cfg.d_model,
+                               device=self.device, dtype=dtype)
         self.layers = nn.ModuleList(
             tfm.init_layer(kind, cfg, device=self.device, dtype=dtype)
             for kind in cfg.layer_types())
@@ -61,7 +79,12 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Fill every parameter in place from ``generator`` (on the model's
         device), with the JAX init's distributions."""
-        self.embed.reset_parameters(generator)
+        if self.cfg.arch_type == "audio":
+            with torch.no_grad():
+                self.head.normal_(0.0, self.cfg.d_model ** -0.5,
+                                  generator=generator)
+        else:
+            self.embed.reset_parameters(generator)
         for block in self.layers:
             block.reset_parameters(generator)
         self.final_norm.reset_parameters(generator)
@@ -70,16 +93,30 @@ class Model(nn.Module):
     # ---------------------------------------------------------- forward ----
 
     def _head(self, x):
-        return x @ self.embed.head
+        return x @ (self.head if self.cfg.arch_type == "audio"
+                    else self.embed.head)
 
     def _embed(self, tokens):
         return F.embedding(tokens.long(), self.embed.tok)
 
-    def forward(self, tokens, *, window_override=None):
-        """Full-sequence forward.  tokens: (B, S) -> logits (B, S, V)."""
-        x = self._embed(tokens)
-        b, s = tokens.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+    def _embed_inputs(self, tokens, patch_embeds, frame_embeds):
+        """The residual stream's input (B, S, D) and its positions (B, S)."""
+        if self.cfg.arch_type == "audio":
+            if frame_embeds is None:
+                raise ValueError(f"{self.cfg.name} takes frame_embeds")
+            x = frame_embeds.to(self.dtype)
+        else:
+            x = self._embed(tokens)
+            if self.cfg.arch_type == "vlm" and patch_embeds is not None:
+                x = torch.cat([patch_embeds.to(self.dtype), x], dim=1)
+        b, s = x.shape[:2]
+        return x, torch.arange(s, device=x.device).expand(b, s)
+
+    def forward(self, tokens=None, *, patch_embeds=None, frame_embeds=None,
+                window_override=None):
+        """Full-sequence forward.  Returns logits (B, S, V), S counting a
+        VLM's patches."""
+        x, positions = self._embed_inputs(tokens, patch_embeds, frame_embeds)
         x, _ = tfm.stack_apply_seq(self.layers, x, self.cfg, positions,
                                    window_override=window_override)
         return self._head(self.final_norm(x))
@@ -99,15 +136,14 @@ class Model(nn.Module):
 
     # ---------------------------------------------------------- serving ----
 
-    def prefill(self, tokens, cache):
-        """Process a prompt into an empty ``cache``.  Returns
-        (last_logits (B, 1, V), cache)."""
+    def prefill(self, tokens, cache, *, patch_embeds=None):
+        """Process a prompt (a VLM's patches first) into an empty
+        ``cache``.  Returns (last_logits (B, 1, V), cache)."""
         if cache["len"] != 0:
             raise ValueError("prefill needs an empty cache; continue a "
                              "sequence with decode_step")
-        x = self._embed(tokens)
-        b, s = tokens.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        x, positions = self._embed_inputs(tokens, patch_embeds, None)
+        s = x.shape[1]
         x, layers = tfm.stack_apply_seq(self.layers, x, self.cfg, positions,
                                         caches=cache["layers"])
         logits = self._head(self.final_norm(x[:, -1:]))
@@ -115,6 +151,9 @@ class Model(nn.Module):
 
     def decode_step(self, cache, tokens):
         """One decode step.  tokens: (B, 1) -> (logits (B, 1, V), cache)."""
+        if not self.cfg.has_decoder:
+            raise ValueError(f"{self.cfg.name} is encoder-only: it has no "
+                             "decode step")
         x = self._embed(tokens)
         x, layers = tfm.stack_apply_step(self.layers, x, self.cfg,
                                          cache["layers"], cache["len"])

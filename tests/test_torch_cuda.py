@@ -170,7 +170,8 @@ def close_rows(got, want, dtype):
 
 
 # head dim -> (query heads, KV heads) of an arch that uses it
-FLASH_HEADS = {64: (8, 2), 128: (8, 1), 160: (8, 2), 256: (10, 1)}
+FLASH_HEADS = {64: (8, 2), 80: (16, 16), 128: (8, 1), 160: (8, 2),
+               256: (10, 1)}
 
 
 @pytest.mark.parametrize("dh", sorted(FLASH_HEADS))
@@ -204,6 +205,23 @@ def test_flash_bf16_kernel_without_causal_mask(cuda, dh):
     close_rows(tflash.flash_attention_cuda(q, k, v, causal=False),
                tflash.flash_attention_torch(q, k, v, causal=False),
                torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [77, 1000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_at_the_encoder_head_shape(cuda, s, dtype):
+    """hubert-xlarge's heads (16 query and 16 KV heads of Dh 80), not
+    causal, from the model's (B, S, H, Dh) storage: every key tile is
+    live and only the ragged last one is masked."""
+    rng = np.random.default_rng(s)
+    q, k, v = (on(cuda, rng, 2, s, 16, 80).to(dtype).transpose(1, 2)
+               for _ in range(3))
+    before = tflash.launches
+    got = tflash.flash_attention_cuda(q, k, v, causal=False)
+    want = tflash.flash_attention_torch(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 1
+    close_rows(got, want, dtype)
 
 
 def decode_cases():

@@ -285,7 +285,8 @@ def test_serve_refuses_interference_on_a_card_catalog_without_corun():
 
 
 PORTED = ("yi-9b", "chatglm3-6b", "mamba2-780m", "recurrentgemma-2b",
-          "stablelm-12b", "command-r-35b", "deepseek-moe-16b", "arctic-480b")
+          "stablelm-12b", "command-r-35b", "deepseek-moe-16b", "arctic-480b",
+          "internvl2-76b")
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -205,9 +205,10 @@ def test_cuda_entry_points_raise_where_cuda_is_absent():
 
 
 def test_model_refuses_what_this_slice_does_not_serve():
+    """Every arch type of ``ModelConfig`` is served; another is refused."""
     with pytest.raises(NotImplementedError, match="dense"):
         Model(dataclasses.replace(get_smoke_config("yi-9b"),
-                                  arch_type="vlm"), device="cpu")
+                                  arch_type="retrieval"), device="cpu")
     with pytest.raises(ValueError, match="empty cache"):
         model = Model(get_smoke_config("yi-9b"), device="cpu")
         cache = model.init_cache(1, 8)

@@ -257,10 +257,13 @@ def test_serve_from_the_committed_h100_catalog():
     lines = COMMITTED.read_text().splitlines()
     recs = [json.loads(line) for line in lines]
     cells = {(r["arch"], r["percent"], r["batch"]) for r in recs}
+    # the mix's decode steps, and hubert-xlarge's forward (an encoder)
     archs = ("yi-9b", "chatglm3-6b", "mamba2-780m", "deepseek-moe-16b",
-             "recurrentgemma-2b")
+             "recurrentgemma-2b", "hubert-xlarge")
     assert cells == {(a, p, b) for a in archs for p in PARTITION_SIZES
                      for b in LBP_BATCHES}
+    assert {r["arch"] for r in recs if r.get("step", "decode") == "decode"
+            } == set(archs[:-1])
     assert len(recs) == len(cells)
     split_sms = {int(c): tuple(v) for c, v in recs[0]["split_sms"].items()}
     assert set(split_sms) == set(CARVES)
@@ -332,9 +335,10 @@ def test_partitions_raise_without_a_card():
 
 
 KEYS = {"card", "power_limit_w", "arch", "percent", "sms", "carve", "side",
-        "split_sms", "batch", "ctx", "cache_slots", "layers", "dtype",
-        "weight_bytes", "bytes_per_req", "step_ms", "step_source", "runs",
-        "run_ms", "eager_wall_ms", "eager_runs", "torch", "cuda"}
+        "split_sms", "batch", "step", "ctx", "cache_slots", "frames",
+        "layers", "dtype", "weight_bytes", "bytes_per_req", "step_ms",
+        "step_source", "runs", "run_ms", "eager_wall_ms", "eager_runs",
+        "torch", "cuda"}
 
 
 def test_profile_partitions_record_schema_on_cpu(tmp_path):
@@ -352,6 +356,7 @@ def test_profile_partitions_record_schema_on_cpu(tmp_path):
     for r in recs:
         assert set(r) == KEYS
         assert r["card"] == "cpu" and r["ctx"] == pp.CTX == 1024
+        assert r["step"] == "decode" and r["frames"] is None
         # a CPU run gives no device time
         assert r["step_ms"] is None and r["runs"] == 0
         assert r["step_source"].startswith("not measured")
