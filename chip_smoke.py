@@ -7,7 +7,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
 
 1. device: the card's name, count and ``nvidia-smi`` name / power limit;
    TF32 off for matmuls and cuDNN, so fp32 means fp32;
-2. build: the four CUDA kernels from ``src/repro_torch/csrc`` with
+2. build: the CUDA kernels from ``src/repro_torch/csrc`` (the four TPU
+   kernels' counterparts, the flash backward and the partition probe) with
    ``nvcc`` (sm_90a), in parallel, and ``ptxas``'s register / spill
    report of every kernel instantiation; then, from ``cuobjdump -sass``,
    the tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions of each
@@ -75,9 +76,11 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    replayed on 24 SMs beside its committed L(b, p) cell (fails outside
    ``FORWARD_BAND`` of it); the check
    that no side of a split is priced from more SMs than it gets; and, from
-   the grid just measured, Elastic Partitioning's and SBP's largest
-   schedulable multiple of the mix on 4 cards, and a replay of the
-   placement through the event engine that must conserve every request;
+   the grid just measured, the five schedulers' largest schedulable
+   multiple of the mix on 4 cards and a replay of the elastic placement
+   through the event engine that must conserve every request (host work
+   alone: ``launch/serve.py`` in a process of its own, ``start_serve``,
+   run beside phases 7-8 and printed after phase 8);
 7. interference (``launch/profile_interference.py``, ``core/h100intf.py``):
    the co-run factors of the ten pairs of distinct models of the mix on
    the 40/60 carve (56 + 76 SMs) at batch 8 on both sides, at most two
@@ -98,12 +101,39 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    interference, and the serving controller under the fluctuating rates of
    the JAX package's example, at the example's share of the elastic
    maximum (``launch/serve.py --fluctuate``, interference off), each of
-   which must conserve its requests.
+   which must conserve its requests (these last from the committed tables
+   alone, in a process of their own started before phase 6 and printed
+   after phase 8);
+8. train (recurrentgemma-2b, ``TRAIN_ARCH``): the flash backward against
+   autograd of the plain version (dq, dk, dv; bf16 and fp32; at
+   recurrentgemma-2b's heads at S 1000 and at S 2100 with its 2048 window
+   binding, yi-9b's and chatglm3-6b's groups, every other head dim at a
+   small shape, causal and not; the tolerances of attention, on values
+   divided by each row's RMS, ``check_grad``; the fp32 cases at S 1000
+   also against the plain version in fp64) and the RG-LRU backward (the
+   kernel on the reversed scan) against autograd of the plain recurrence
+   (S 1000 and 4096, with and without h0), both while the CPU computes
+   its side of one fp32 train step of a 3-layer recurrentgemma-2b at full
+   width over 2100 tokens, card against CPU (loss, every gradient, the
+   parameters after the AdamW step, within ``PARITY_REL``), and the card
+   model's checkpoint read back through the bridge bit for bit; each
+   kernel at the training shape held against its plain version, then
+   timed beside the plain versions' and SDPA's forward + backward; then ``repro_torch.launch.train`` at
+   full width and depth, bf16, 8 steps of B4 x S1024: every loss and grad
+   norm finite, the last loss below the first, and each kernel's launch
+   count (set to 0 before, read after) exactly the path's: per step 16
+   flash forwards (8 layers, each recomputed under remat), 8 flash
+   backwards, 54 RG-LRU scans of which 18 backward, no decode or SSD
+   scan; and one more step traced by the profiler (device busy, kernel
+   time by family).
 
 The line before the last is the kernels' JSON record (one entry per kernel
 and served model, one for the grid's decode launches and one for the
 co-run's; ``partition_ms`` is a kernel's time on the smallest partition);
-the last line is ``{"ok": true, "device": {...}}``.
+the last line is ``{"ok": true, "device": {...}}``.  Phase 8 adds the
+training path's records (``path`` ``train:recurrentgemma-2b``): the
+forward kernels and the two backward passes at the training shape, with
+``fwd_bwd_ms`` beside each backward's time.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits nonzero and prints no result.
 """
@@ -112,9 +142,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -172,15 +205,33 @@ LBP_OUT = ROOT / "results/out/h100_lbp.jsonl"
 # the committed tables the interference phase compares with and replays
 COMMITTED = {n: ROOT / f"results/h100_{n}.jsonl"
              for n in ("lbp", "corun", "features")}
+# phase 7's schedulers on them (``launch/serve.py``, host work alone)
+COMMITTED_REPLAY = (
+    "--results", str(COMMITTED["lbp"]), "--corun", str(COMMITTED["corun"]),
+    "--features", str(COMMITTED["features"]), "--gpus", "4", "--max-scale",
+    "--replay", "--fluctuate")
 CORUN_CARVE, CORUN_BATCH = 40, 8  # the co-run subset: 56 + 76 SMs, batch 8
 MIN_FACTOR = 0.95  # a co-run faster than solo by more than this is a fault
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
+# phase 8: the model trained at full width and depth, and its shape
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
+TRAIN_PATH = f"train:{TRAIN_ARCH}"
+# a bf16 gradient row's RMS is floored at this share of the tensor's RMS
+GRAD_ROW_FLOOR = 1e-2
+CKPT_DIR = ROOT / "results/out"  # ignored by git; the checkpoint is removed
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
     "decode_attention": "src/repro/kernels/decode_attention.py:67",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:38",
 }
+# the backward passes: no TPU kernel has one; each backs the forward it
+# differentiates, from its own source (RG-LRU's runs the forward kernel)
+REPLACES.update(flash_attention_backward=REPLACES["flash_attention"],
+                rglru_scan_backward=REPLACES["rglru_scan"])
+SOURCE = {"flash_attention_backward": "flash_attention_bwd",
+          "rglru_scan_backward": "rglru_scan"}
 
 
 def log(*args):
@@ -277,6 +328,14 @@ def device_ms(fn, sets, iters: int) -> float:
                          "card's spin")
 
 
+def timed(fn, *args):
+    """``fn(*args)``, logging its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -292,12 +351,13 @@ def live_pairs(s: int, causal: bool, window) -> int:
     return int((hi - lo).sum())
 
 
-def record(name, path, shape, err, ms, plain_ms, bound, library_ms) -> dict:
+def record(name, path, shape, err, ms, plain_ms, bound, library_ms,
+           **extra) -> dict:
     return dict(name=name, path=path, route="cuda",
-                source=f"src/repro_torch/csrc/{name}.cu",
+                source=f"src/repro_torch/csrc/{SOURCE.get(name, name)}.cu",
                 replaces=REPLACES[name], shape=shape, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                bound_by=bound[1], library_ms=library_ms)
+                bound_by=bound[1], library_ms=library_ms, **extra)
 
 
 # -------------------------------------------------------------- phases ----
@@ -769,7 +829,7 @@ def parity(arch: str, n_layers: int, runs):
     card = Model(cfg, dtype=torch.float32, device="cuda")
     card.init(torch.Generator(device="cuda").manual_seed(0))
     cpu = Model(cfg, dtype=torch.float32, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    cpu.load_state_dict(card.state_dict())  # copied across devices
     seen_card, seen_cpu = moe_inputs(card), moe_inputs(cpu)
     mods = counters()
     n_patches = cfg.n_frontend_tokens if cfg.arch_type == "vlm" else 0
@@ -804,7 +864,10 @@ def parity(arch: str, n_layers: int, runs):
                 outs.append((card.decode_step(c_card,
                                               toks[:, i:i + 1].cuda()),
                              cpu.decode_step(c_cpu, toks[:, i:i + 1])))
-        if seen_cpu:
+        if "moe" in cfg.layer_types():
+            if not seen_cpu:
+                raise AssertionError(f"{arch}: no MoE layer input was seen, "
+                                     "so the routing was not compared")
             check_routing(arch, card, cpu, seen_card, seen_cpu)
         # fp32 on both sides (TF32 off); the sums over d_model and d_ff run
         # in another order on the card, so the bound is relative to the
@@ -1101,17 +1164,17 @@ def grid_launches(records) -> int:
     return sum(steps * n_attn(get_config(r["arch"])) for r in records)
 
 
-def phase_partitions(records: dict):
+def phase_partitions(records: dict, procs: dict):
     """SM partitions (green contexts): disjoint carves, the kernels on the
     smallest partition, the L(b, p) grid from CUDA-graph replays (the path
-    whose decode-attention launches are counted), the priced SMs of every
-    split's sides, and the elastic / SBP plan and its replay from the grid
-    just measured.  Returns the grid."""
-    from repro_torch.core.h100lets import MIX, granted_sms
+    whose decode-attention launches are counted) and the priced SMs of
+    every split's sides.  The schedulers' max scales and the elastic
+    plan's replay from the grid just measured are started in the
+    background (``start_serve``, ``procs["grid"]``).  Returns the grid."""
+    from repro_torch.core.h100lets import granted_sms
     from repro_torch.core.latency import PARTITION_SIZES, SPLIT_PAIRS
     from repro_torch.launch import partition as part_mod
     from repro_torch.launch import profile_partitions as pp
-    from repro_torch.launch import serve
 
     log("[6] partitions: SM partitions of the card (green contexts)")
     total = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1143,6 +1206,9 @@ def phase_partitions(records: dict):
            for r in grid):
         raise AssertionError("a grid cell has no step time")
     pp.write(grid, LBP_OUT)
+    procs["grid"] = start_serve("--results", str(LBP_OUT), "--gpus", "4",
+                                "--max-scale", "--replay",
+                                "--no-interference")
     log(pp.table(grid))
     dec = records["decode_attention", "yi-9b"]
     # the grid's own record: yi-9b's shape, measured in phases 3 and 6
@@ -1161,24 +1227,20 @@ def phase_partitions(records: dict):
             raise AssertionError(f"split {pair}: a side is priced from more "
                                  "SMs than it gets")
 
-    profiles, provider = serve.load_catalog(str(LBP_OUT))
-    lam = serve.max_scales(profiles, provider, MIX, 4)
-    ratio = lam["elastic"] / lam["sbp"] if lam["sbp"] else float("nan")
-    log(f"  4 cards, mix {MIX}: max scale elastic {lam['elastic']:.3f}x, "
-        f"SBP {lam['sbp']:.3f}x, elastic / SBP {ratio:.3f}, self-tuning "
-        f"{lam['self-tuning']:.3f}x, ideal {lam['ideal']:.3f}x (its "
-        f"enumeration alone {lam['ideal (enumeration)']:.3f}x)")
-    if not lam["elastic"] > 0:
+    log("  the five schedulers' max scales on this grid and the elastic "
+        "plan's replay run beside phases 7-8; their lines follow phase 8")
+    return grid
+
+
+def check_grid_schedule(result: dict):
+    """Phase 6's schedulers on this run's grid: elastic partitioning
+    admits load, and its replay serves every request it is offered."""
+    if not result["elastic_max_scale"] > 0:
         raise AssertionError("elastic partitioning admits no load")
-    rates = {m: r * lam["elastic"] * serve.REPLAY_SHARE
-             for m, r in MIX.items()}
-    met, result = serve.serve_end_to_end(profiles, provider, rates,
-                                         n_gpus=4, horizon_s=20.0, seed=0)
-    rep = serve.replay_summary(met, result, rates)
+    rep = result["replay"]
     log("  replay " + json.dumps(rep))
     if not rep["conserved"] or rep["total"] == 0:
         raise AssertionError("the replay lost requests")
-    return grid
 
 
 def forward_on_partition(part, arch: str = "hubert-xlarge"):
@@ -1240,9 +1302,8 @@ def phase_interference(records: dict, grid: list):
     features on the 40 and 60 sides beside the committed ones; and, from
     the committed tables, the fitted predictor, the five schedulers' max
     scale, the two replays under measured interference and the controller
-    under fluctuating rates."""
-    import contextlib
-    import io
+    under fluctuating rates (these last from ``start_replay``, beside
+    phase 8)."""
     from repro_torch.configs import get_config
     from repro_torch.core.h100intf import (features_from_grid, load_corun,
                                            load_features)
@@ -1250,7 +1311,6 @@ def phase_interference(records: dict, grid: list):
     from repro_torch.core.interference import FEATURE_BATCH
     from repro_torch.launch import profile_interference as pi
     from repro_torch.launch import profile_partitions as pp
-    from repro_torch.launch import serve
     from repro_torch.launch.partition import split
 
     log(f"[7] interference: co-runs on the {CORUN_CARVE}/{100 - CORUN_CARVE}"
@@ -1329,23 +1389,598 @@ def phase_interference(records: dict, grid: list):
             if not 0 < r["dram_share"] < 1.5:
                 raise AssertionError(f"DRAM share {r}")
     log(f"  L2 share: {pi.L2_REASON}")
+    log("  the committed tables' fit, max scales, replays and controller run"
+        " beside phases 6-8; their lines follow phase 8")
 
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = serve.main([
-            "--results", str(COMMITTED["lbp"]), "--corun",
-            str(COMMITTED["corun"]), "--features",
-            str(COMMITTED["features"]), "--gpus", "4", "--max-scale",
-            "--replay", "--fluctuate"])
-    lines = out.getvalue().splitlines()
-    for line in lines[:-1]:
-        log("  " + line)
-    result = json.loads(lines[-1])
-    if rc or not all(r["conserved"] for r in result["replays"].values()) \
+
+def check_committed_replay(result: dict):
+    """Phase 7's replays of the committed tables: every replay and the
+    controller's run conserve their requests, and some enumerated
+    partitioning places the mix."""
+    if not all(r["conserved"] for r in result["replays"].values()) \
             or not result["fluctuate"]["conserved"]:
         raise AssertionError(f"a replay lost requests: {result}")
     if not result["ideal_enumerated_max_scale"] > 0:
         raise AssertionError("no enumerated partitioning places the mix")
+
+
+def start_serve(*args: str) -> subprocess.Popen:
+    """``python -m repro_torch.launch.serve *args`` in a process of its
+    own that never touches the card, its standard output to an unnamed
+    file.  The schedulers' work in phases 6 and 7 reads only a table and
+    takes about a minute of one host core each, so it runs beside the
+    card's later phases instead of before them."""
+    out = tempfile.TemporaryFile(mode="w+")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
+        stdout=out, env=env, cwd=ROOT, text=True)
+    proc.out = out
+    return proc
+
+
+def finish_serve(proc: subprocess.Popen, header: str) -> dict:
+    """Waits for ``start_serve``'s process, logs its lines under
+    ``header`` and returns its last line's JSON; fails if it exited
+    nonzero (a replay that lost requests, or no output)."""
+    rc = proc.wait()
+    proc.out.seek(0)
+    lines = proc.out.read().splitlines()
+    proc.out.close()
+    log(header)
+    for line in lines[:-1]:
+        log("  " + line)
+    if rc or not lines:
+        raise AssertionError(f"launch/serve.py {' '.join(proc.args[3:])} "
+                             f"exited {rc}")
+    return json.loads(lines[-1])
+
+
+def finish_schedules(procs: dict):
+    """Phases 6 and 7's scheduler processes, read and checked."""
+    check_grid_schedule(finish_serve(
+        procs["grid"], "[6] (continued) the schedulers on this run's grid, "
+        "run beside phases 7-8:"))
+    check_committed_replay(finish_serve(
+        procs["committed"], "[7] (continued) the committed tables, run "
+        "beside phases 6-8:"))
+
+
+# ------------------------------------------------------------- training ----
+
+
+def check_grad(name, got, want, dtype) -> float:
+    """Gradients (..., Dh) at the attention tolerances: fp32 as the fp32
+    kernels, |got - want| <= 1e-5 + 1e-4 |want|, against the plain version
+    in fp64 (``plain_flash_grads(exact=True)``: the fp32 plain version
+    itself misses fp64 by more than that at S 1000, where a gradient sums
+    thousands of terms); bf16 3e-2 / 3e-2 on values divided by their
+    row's RMS, floored at ``GRAD_ROW_FLOOR`` of the whole tensor's (a
+    row's exact gradient may vanish: query 0's dq under a causal mask).
+    Returns the max abs error (unscaled)."""
+    rtol, atol = TOL[dtype]
+    scale = 1.0
+    if dtype == torch.bfloat16:
+        w = want.float()
+        floor = GRAD_ROW_FLOOR * float(w.pow(2).mean().sqrt())
+        scale = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(floor) + 1e-9
+    return _check(name, got, want, rtol, atol, scale)
+
+
+def tol_share(got, want) -> float:
+    """max |got - want| / (atol + rtol |want|) at the fp32 tolerance."""
+    rtol, atol = TOL[torch.float32]
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def flash_grad_inputs(gen, b, h, hkv, s, dh, dtype):
+    """q, k, v as the model hands them over ((B, S, H, Dh) storage seen as
+    (B, H, S, Dh)), and dO as autograd hands it back (the same layout)."""
+    return tuple(_randn(gen, b, s, n, dh, dtype=dtype).transpose(1, 2)
+                 for n in (h, hkv, hkv, h))
+
+
+def plain_flash_grads(q, k, v, do, causal, window, exact=False):
+    """dq, dk, dv by autograd of the plain version; in fp64 with
+    ``exact``."""
+    from repro_torch.kernels import flash_attention as fl
+    dtype = torch.float64 if exact else q.dtype
+    leaves = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+    out = fl.flash_attention_torch(*leaves, causal=causal, window=window)
+    return torch.autograd.grad(out, leaves, do.to(dtype))
+
+
+def grads_flash(gen):
+    """The flash backward against autograd of the plain version."""
+    from repro_torch.kernels import flash_attention as fl
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        for b, h, hkv, s, dh, causal, window in [
+                (4, 10, 1, 1000, 256, True, 2048),    # recurrentgemma-2b
+                (1, 10, 1, 2100, 256, True, 2048),    # its window binding
+                (4, 32, 4, 1000, 128, True, None),    # yi-9b, G 8
+                (4, 32, 2, 1000, 128, True, None),    # chatglm3-6b, G 16
+                (2, 8, 2, 300, 64, True, None), (2, 8, 2, 300, 64, False,
+                                                 None),
+                (2, 16, 16, 300, 80, True, None), (2, 16, 16, 300, 80,
+                                                   False, None),
+                (2, 8, 2, 300, 128, False, None),
+                (2, 8, 2, 300, 160, True, None), (2, 8, 2, 300, 160, False,
+                                                  None),
+                (2, 10, 1, 300, 256, False, None)]:
+            q, k, v, do = flash_grad_inputs(gen, b, h, hkv, s, dh, dtype)
+            got = fl.flash_attention_bwd_cuda(q, k, v, do, causal=causal,
+                                              window=window)
+            fp32 = dtype == torch.float32
+            want = plain_flash_grads(q, k, v, do, causal, window, exact=fp32)
+            torch.cuda.synchronize()
+            name = (f"flash backward {tag} B{b} H{h}/{hkv} S{s} Dh{dh} "
+                    f"{'causal' if causal else 'non-causal'} window={window}")
+            for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                check_grad(f"{name} {what}", g, w, dtype)
+            if fp32 and s >= 1000:
+                # the fp32 plain version against fp64, beside the kernel
+                plain = plain_flash_grads(q, k, v, do, causal, window)
+                log("    share of the fp32 tolerance used against fp64: " +
+                    ", ".join(f"{what} kernel {tol_share(g, e):.2f} plain "
+                              f"{tol_share(p, e):.2f}" for what, g, p, e in
+                              zip(("dq", "dk", "dv"), got, plain, want)))
+                del plain
+            del q, k, v, do, got, want
+
+
+def grads_rglru(gen):
+    """The RG-LRU backward (the kernel on the reversed scan) against
+    autograd of the plain recurrence, fp32."""
+    from repro_torch.kernels import rglru_scan as rg
+    for s, with_h0 in [(s, h0) for s in (1000, 4096) for h0 in (True, False)]:
+        a, b, h0 = rglru_inputs(gen, 4, s, 2560, torch.float32, with_h0)
+        g_seq = _randn(gen, 4, s, 2560, dtype=torch.float32)
+        g_last = _randn(gen, 4, 2560, dtype=torch.float32)
+        h_seq, _ = rg.rglru_scan_cuda(a, b, h0)
+        got = rg.rglru_scan_backward_cuda(a, h_seq, h0, g_seq, g_last)
+        leaves = [t.clone().requires_grad_(True) for t in (a, b)]
+        if with_h0:
+            leaves.append(h0.clone().requires_grad_(True))
+        outs = rg.rglru_scan_torch(leaves[0], leaves[1],
+                                   leaves[2] if with_h0 else None)
+        want = torch.autograd.grad(outs, leaves, (g_seq, g_last))
+        torch.cuda.synchronize()
+        for what, g, w in zip(("da", "db", "dh0"), got, want):
+            _check(f"rglru backward fp32 B4 S{s} W2560 h0={with_h0} {what}",
+                   g, w, RGLRU_TOL, RGLRU_TOL, 1.0)
+        del a, b, h0, g_seq, h_seq, got, leaves, outs, want
+
+
+def times_flash_train(gen, records):
+    """The forward and backward kernels at recurrentgemma-2b's training
+    shape (bf16, B4 S1024), each first held against its plain version on
+    one input set, then timed beside the plain version's and SDPA's (a
+    yardstick the port never calls; below S 2048 its causal mask is the
+    window's): each alone and forward + backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.models.layers import _repeat_kv
+    b, h, hkv, s, dh, window = 4, 10, 1, TRAIN_SEQ, 256, 2048
+    dtype, item = torch.bfloat16, 2
+    pairs = live_pairs(s, True, window) * b * h
+    n_q, n_kv = b * h * s * dh, b * hkv * s * dh
+    fwd_bytes = item * (2 * n_q + 2 * n_kv)
+    # q, dO, k, v read; dq, dk, dv written (O is not read)
+    bwd_bytes = item * (3 * n_q + 4 * n_kv)
+
+    sets = copies(lambda: flash_grad_inputs(gen, b, h, hkv, s, dh, dtype),
+                  bwd_bytes)
+    shape = f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} causal window={window}"
+
+    def kernel_fwd(q, k, v, do):
+        return fl.flash_attention_cuda(q, k, v, window=window)
+
+    def kernel_bwd(q, k, v, do):
+        return fl.flash_attention_bwd_cuda(q, k, v, do, window=window)
+
+    def kernel_both(q, k, v, do):
+        fl.flash_attention_cuda(q, k, v, window=window)
+        return fl.flash_attention_bwd_cuda(q, k, v, do, window=window)
+
+    def plain_fwd(q, k, v, do):
+        return fl.flash_attention_torch(q, k, v, window=window)
+
+    def plain_both(q, k, v, do):
+        return plain_flash_grads(q, k, v, do, True, window)
+
+    fwd_err = check_close(f"flash forward at the training shape [{shape}]",
+                          kernel_fwd(*sets[0]), plain_fwd(*sets[0]), dtype)
+    bwd_err = max(check_grad(f"flash backward at the training shape "
+                             f"[{shape}] {what}", g, w, dtype)
+                  for what, g, w in zip(("dq", "dk", "dv"),
+                                        kernel_bwd(*sets[0]),
+                                        plain_both(*sets[0])))
+
+    lib_sets = [[t.detach().requires_grad_(True) for t in (
+        q, _repeat_kv(k.transpose(1, 2), h).transpose(1, 2),
+        _repeat_kv(v.transpose(1, 2), h).transpose(1, 2))] + [do]
+        for q, k, v, do in sets]
+
+    def sdpa_fwd(q, k, v, do):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def sdpa_both(q, k, v, do):
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return torch.autograd.grad(out, (q, k, v), do)
+
+    def graphs(fn_out, leaves_of, set_list):
+        """(out, leaves, do) per set, for timing a backward alone."""
+        return [(fn_out(*st), leaves_of(st), st[-1]) for st in set_list]
+
+    def backward_only(out, leaves, do):
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    ms_fwd = time_ms(kernel_fwd, sets, 20)
+    ms_bwd = time_ms(kernel_bwd, sets, 10)
+    ms_both = time_ms(kernel_both, sets, 10)
+    plain_fwd_ms = time_ms(plain_fwd, sets, 3)
+    plain_both_ms = time_ms(plain_both, sets, 3)
+    sdpa_fwd_ms = time_ms(sdpa_fwd, lib_sets, 20)
+    sdpa_both_ms = time_ms(sdpa_both, lib_sets, 10)
+    plain_graphs = graphs(
+        lambda q, k, v, do: fl.flash_attention_torch(q, k, v, window=window),
+        lambda st: st[:3], [[t.detach().requires_grad_(True)
+                             for t in st[:3]] + [st[3]] for st in sets])
+    plain_bwd_ms = time_ms(backward_only, plain_graphs, 3)
+    del plain_graphs
+    sdpa_graphs = graphs(
+        lambda q, k, v, do: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True),
+        lambda st: st[:3], lib_sets)
+    sdpa_bwd_ms = time_ms(backward_only, sdpa_graphs, 10)
+    del sdpa_graphs, lib_sets
+    fwd_bound = bound_ms(fwd_bytes, 4 * dh * pairs, dtype)
+    bwd_bound = bound_ms(bwd_bytes, 10 * dh * pairs, dtype)
+    records["flash_attention", TRAIN_PATH] = record(
+        "flash_attention", TRAIN_PATH, shape, fwd_err, ms_fwd, plain_fwd_ms,
+        fwd_bound, sdpa_fwd_ms)
+    records["flash_attention_backward", TRAIN_PATH] = record(
+        "flash_attention_backward", TRAIN_PATH, shape, bwd_err, ms_bwd,
+        plain_bwd_ms, bwd_bound, sdpa_bwd_ms, fwd_bwd_ms=ms_both,
+        plain_fwd_bwd_ms=plain_both_ms, library_fwd_bwd_ms=sdpa_both_ms)
+    log(f"  flash at the training shape [{shape}]: forward {ms_fwd:.4f} ms "
+        f"(bound {fwd_bound[0]:.4f}, {fwd_bound[1]}; plain "
+        f"{plain_fwd_ms:.4f} ms, SDPA {sdpa_fwd_ms:.4f} ms); backward "
+        f"{ms_bwd:.4f} ms (bound {bwd_bound[0]:.4f}, {bwd_bound[1]}: 10 Dh "
+        f"operations a live pair, {10 * dh * pairs:.3g}; {bwd_bytes:.3g} "
+        f"bytes); forward + backward: kernels {ms_both:.4f} ms, plain "
+        f"{plain_both_ms:.4f} ms, SDPA {sdpa_both_ms:.4f} ms; backward "
+        f"alone: plain {plain_bwd_ms:.4f} ms, SDPA {sdpa_bwd_ms:.4f} ms")
+    del sets
+
+
+def times_rglru_train(gen, records):
+    """The RG-LRU scan forward and its backward at the training shape
+    (fp32 a, b: B4 S1024 W2560, no h0), each first held against its plain
+    version on one input set, then timed beside the plain versions (the
+    plain recurrence, a loop of S steps, on one set and few calls)."""
+    from repro_torch.kernels import rglru_scan as rg
+    b, s, w = 4, TRAIN_SEQ, 2560
+    elems = b * s * w
+
+    def make():
+        a, bb, _ = rglru_inputs(gen, b, s, w, torch.float32, False)
+        h_seq, _ = rg.rglru_scan_cuda(a, bb)
+        return (a, bb, h_seq, _randn(gen, b, s, w, dtype=torch.float32),
+                _randn(gen, b, w, dtype=torch.float32))
+
+    # backward: a, h_seq and g read, da and db written (+ the (B, W) rows)
+    bwd_bytes = 4 * (5 * elems + 3 * b * w)
+    sets = copies(make, bwd_bytes)
+    shape = f"fp32 B{b} S{s} W{w}"
+
+    def kernel_fwd(a, bb, *_):
+        return rg.rglru_scan_cuda(a, bb)
+
+    def plain_fwd(a, bb, *_):
+        return rg.rglru_scan_torch(a, bb)
+
+    def kernel_bwd(a, bb, h_seq, g, gl):
+        return rg.rglru_scan_backward_cuda(a, h_seq, None, g, gl)
+
+    def kernel_both(a, bb, h_seq, g, gl):
+        h_seq, _ = rg.rglru_scan_cuda(a, bb)
+        return rg.rglru_scan_backward_cuda(a, h_seq, None, g, gl)
+
+    def plain_bwd(a, bb, h_seq, g, gl):
+        return rg.rglru_scan_backward(rg.rglru_scan_torch, a, h_seq, None,
+                                      g, gl)
+
+    def plain_both(a, bb, h_seq, g, gl):
+        leaves = [t.detach().requires_grad_(True) for t in (a, bb)]
+        return torch.autograd.grad(rg.rglru_scan_torch(*leaves), leaves,
+                                   (g, gl))
+
+    fwd_err = _check(f"rglru forward at the training shape [{shape}]",
+                     kernel_fwd(*sets[0])[0], plain_fwd(*sets[0])[0],
+                     RGLRU_TOL, RGLRU_TOL, 1.0)
+    bwd_err = max(_check(f"rglru backward at the training shape [{shape}] "
+                         f"{what}", g, w_, RGLRU_TOL, RGLRU_TOL, 1.0)
+                  for what, g, w_ in zip(("da", "db"), kernel_bwd(*sets[0]),
+                                         plain_both(*sets[0])))
+    ms_fwd = time_ms(kernel_fwd, sets, 20)
+    ms_bwd = time_ms(kernel_bwd, sets, 20)
+    ms_both = time_ms(kernel_both, sets, 20)
+    plain_fwd_ms = time_ms(plain_fwd, sets[:1], 1)
+    plain_bwd_ms = time_ms(plain_bwd, sets[:1], 1)
+    plain_both_ms = time_ms(plain_both, sets[:1], 1)
+    fwd_bound = bound_ms(4 * 3 * elems, 2 * elems, torch.float32)
+    bwd_bound = bound_ms(bwd_bytes, 4 * elems, torch.float32)
+    records["rglru_scan", TRAIN_PATH] = record(
+        "rglru_scan", TRAIN_PATH, shape, fwd_err, ms_fwd, plain_fwd_ms,
+        fwd_bound, None)
+    records["rglru_scan_backward", TRAIN_PATH] = record(
+        "rglru_scan_backward", TRAIN_PATH, shape, bwd_err, ms_bwd,
+        plain_bwd_ms, bwd_bound, None, fwd_bwd_ms=ms_both,
+        plain_fwd_bwd_ms=plain_both_ms)
+    log(f"  rglru at the training shape [{shape}]: forward {ms_fwd:.4f} ms "
+        f"(bound {fwd_bound[0]:.4f}, {fwd_bound[1]}), backward {ms_bwd:.4f}"
+        f" ms (bound {bwd_bound[0]:.4f}, {bwd_bound[1]}); forward + "
+        f"backward: kernel {ms_both:.4f} ms, plain {plain_both_ms:.4f} ms; "
+        f"plain forward {plain_fwd_ms:.4f} ms, backward alone "
+        f"{plain_bwd_ms:.4f} ms")
+    del sets
+
+
+def train_counters() -> dict:
+    """name -> (module, counter attribute) of every kernel a training step
+    may launch, and of those it must not."""
+    mods = counters()
+    return {"flash_attention": (mods["flash_attention"], "launches"),
+            "flash_attention_backward": (mods["flash_attention"],
+                                         "bwd_launches"),
+            "rglru_scan": (mods["rglru_scan"], "launches"),
+            "rglru_scan_backward": (mods["rglru_scan"], "bwd_launches"),
+            "decode_attention": (mods["decode_attention"], "launches"),
+            "ssd_scan": (mods["ssd_scan"], "launches")}
+
+
+def read_counts(names) -> dict:
+    return {k: getattr(m, attr) for k, (m, attr) in names.items()}
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Per step: each attention layer's flash forward twice (the forward
+    and its recompute under remat) and its backward once; each RG-LRU
+    layer's scan twice forward and once backward, the backward one more
+    launch of the same kernel."""
+    kinds = cfg.layer_types()
+    n_attn_layers, n_rglru = n_attn(cfg), kinds.count("rglru")
+    return {"flash_attention": 2 * n_attn_layers * steps,
+            "flash_attention_backward": n_attn_layers * steps,
+            "rglru_scan": 3 * n_rglru * steps,
+            "rglru_scan_backward": n_rglru * steps,
+            "decode_attention": 0, "ssd_scan": 0}
+
+
+def train_parity(beside):
+    """fp32, recurrentgemma-2b at full width, 3 layers (one (rglru, rglru,
+    attn) unit), one 2100-token sequence so that the 2048-token window
+    binds: the card (kernels) against the same weights on the CPU (plain
+    versions): the loss, every parameter's gradient, the parameters after
+    one AdamW step; then a checkpoint of the card's model, read back
+    through the bridge.  The CPU's step runs in a thread of its own; the
+    card's step, ``beside()`` (untimed card work) and the checkpoint's
+    round trip run meanwhile."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.training.optim import (OptimConfig, adamw_init,
+                                            adamw_update)
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=3)
+    card = Model(cfg, dtype=torch.float32, device="cuda")
+    card.init(torch.Generator(device="cuda").manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict(card.state_dict())  # copied across devices
+    toks = torch.from_numpy(np.random.default_rng(2100).integers(
+        0, cfg.vocab_size, (1, 2100)))
+    out = {}
+
+    def step(model):
+        t0 = time.perf_counter()
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        state = adamw_init(params)
+        loss = model.loss_fn({"tokens": toks.to(model.device)})
+        loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        metrics = adamw_update(params, grads, state, OptimConfig())
+        out[model.device.type] = (float(loss.detach()), metrics, grads,
+                                  time.perf_counter() - t0)
+
+    worker = threading.Thread(target=step, args=(cpu,), daemon=True)
+    worker.start()
+    names = train_counters()
+    before = read_counts(names)
+    step(card)
+    rose = {k: v - before[k] for k, v in read_counts(names).items()}
+    beside()
+    checkpoint_round_trip(card)
+    worker.join()
+    if "cpu" not in out:
+        raise AssertionError("the CPU's train step failed")
+    for dev, (loss, metrics, _, secs) in out.items():
+        log(f"    {dev}: loss {loss:.6f}, grad norm "
+            f"{float(metrics['grad_norm']):.6f}, lr {float(metrics['lr']):.3e}"
+            f" ({secs:.1f} s)")
+    want = expected_train_launches(cfg, 1)
+    log(f"    kernel launches {rose}, expected {want}")
+    if rose != want:
+        raise AssertionError("the card's train step did not go through the "
+                             "kernels as its path says")
+    (l_card, m_card, g_card, _), (l_cpu, m_cpu, g_cpu, _) = (out["cuda"],
+                                                             out["cpu"])
+    if not abs(l_card - l_cpu) <= PARITY_REL * abs(l_cpu):
+        raise AssertionError(f"loss: card {l_card} cpu {l_cpu}")
+    for key in ("grad_norm", "lr"):
+        a, b = float(m_card[key]), float(m_cpu[key])
+        if not abs(a - b) <= PARITY_REL * abs(b):
+            raise AssertionError(f"{key}: card {a} cpu {b}")
+    worst = {"grad": (0.0, ""), "param": (0.0, "")}
+    params_cpu = dict(cpu.named_parameters())
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            for what, got, want_t in (("grad", g_card[name], g_cpu[name]),
+                                      ("param", p, params_cpu[name])):
+                want_t = want_t.to("cuda")  # compared on the card
+                scale = float(want_t.abs().max())
+                rel = float((got - want_t).abs().max()) / max(scale, 1e-30)
+                if not rel <= PARITY_REL:
+                    raise AssertionError(f"{what} of {name}: card and CPU "
+                                         f"differ by {rel:.2e} of max |cpu|")
+                worst[what] = max(worst[what], (rel, name))
+    log(f"    every gradient within {worst['grad'][0]:.2e} of its max |cpu| "
+        f"(worst {worst['grad'][1]}), every parameter after the AdamW step "
+        f"within {worst['param'][0]:.2e} (worst {worst['param'][1]}); "
+        f"bound {PARITY_REL}")
+    del out, g_card, g_cpu, cpu, params_cpu, card
+    torch.cuda.empty_cache()
+
+
+def checkpoint_round_trip(model):
+    """``model``'s checkpoint in the JAX format, read back through the
+    bridge onto the card: every tensor bit-equal, and the manifest's bytes
+    the parameters' own."""
+    from repro_torch.checkpoint import (load_jax_checkpoint, manifest_nbytes,
+                                        params_from_jax, save_checkpoint)
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=CKPT_DIR) as d:
+        t0 = time.perf_counter()
+        save_checkpoint(d, model, step=1)
+        back = params_from_jax(load_jax_checkpoint(d, step=1), model.cfg,
+                               device="cuda")
+        nbytes = manifest_nbytes(d, step=1)
+        same = all(torch.equal(a, b) for a, b in zip(
+            back.state_dict().values(), model.state_dict().values()))
+        want_bytes = sum(p.numel() * p.element_size()
+                         for p in model.parameters())
+        log(f"    checkpoint of the stepped card model: {nbytes / 2**30:.2f}"
+            f" GiB written, read back through the bridge "
+            f"({time.perf_counter() - t0:.1f} s, beside the CPU's step): "
+            f"{'bit-equal' if same else 'DIFFERENT'}")
+        if not same or nbytes != want_bytes:
+            raise AssertionError("the checkpoint does not give the model "
+                                 "back")
+
+
+def train_full(records):
+    """bf16, recurrentgemma-2b at full width and depth through the training
+    launcher: every loss and grad norm finite, the last loss below the
+    first, and the exact kernel launches of the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    names = train_counters()
+    for module, attr in names.values():
+        setattr(module, attr, 0)
+    rep = launcher.train(TRAIN_ARCH, "full", steps=TRAIN_STEPS,
+                         batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=1e-3,
+                         device="cuda",
+                         log_fn=lambda line: log("    " + line))
+    counts = read_counts(names)
+    want = expected_train_launches(get_config(TRAIN_ARCH), TRAIN_STEPS)
+    log(f"    launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError("training did not go through the kernels as "
+                             "its path says")
+    hist = rep["history"]
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    if len(hist) != TRAIN_STEPS or not finite:
+        raise AssertionError(f"a loss or grad norm is not finite: {hist}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError("the loss did not fall")
+    steady = hist[1:]  # the first step pays for the first launches
+    ms = sorted(h["ms_per_step"] for h in steady)[len(steady) // 2]
+    log(f"    {rep['n_params'] / 1e9:.3f} B parameters, median step "
+        f"{ms:.1f} ms ({TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s) "
+        f"over steps 2-{TRAIN_STEPS}, peak {rep['peak_gib']:.2f} GiB")
+    for name in ("flash_attention", "flash_attention_backward",
+                 "rglru_scan", "rglru_scan_backward"):
+        records[name, TRAIN_PATH]["launches"] = counts[name]
+    return rep["model"]
+
+
+def profile_train_step(model):
+    """Where the device time of a bf16 full-depth step goes: two more
+    steps of the model just trained, the second traced by
+    ``torch.profiler``: wall, device busy and idle share, and the kernels'
+    time by family and by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import token_batches
+    from repro_torch.serving.profile import window_report
+    from repro_torch.training.optim import OptimConfig
+    from repro_torch.training.train import make_train_step
+    cfg = model.cfg
+    step = make_train_step(model, OptimConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=TRAIN_STEPS))
+    batches = list(token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 2))
+    step(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batches[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rep = window_report("train step", prof, wall, 1, top=10)
+    if "top_kernels" not in rep:
+        raise AssertionError("the profiler saw no device time in the step")
+    families = {"flash backward": r"flash_bwd_", "flash forward":
+                r"flash_bf16", "RG-LRU scan": r"rglru", "matmuls":
+                r"gemm|nvjet|xmma|cutlass|Gemm"}
+    by_family = dict.fromkeys([*families, "other"], 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            fam = next((f for f, pat in families.items()
+                        if re.search(pat, e.name)), "other")
+            by_family[fam] += e.time_range.elapsed_us() / 1e3
+    log(f"    profiled step: wall {rep['wall_ms_per_step']:.1f} ms, device "
+        f"busy {rep['device_busy_ms_per_step']:.1f} ms (idle "
+        f"{rep['device_idle_share']:.1%}), {rep['kernels_per_step']:.0f} "
+        "kernels; by family: " + ", ".join(
+            f"{f} {ms:.1f} ms" for f, ms in by_family.items()))
+    for k in rep["top_kernels"]:
+        log(f"      {k['ms']:.2f} ms x{k['count']} ({k['share_of_busy']:.1%})"
+            f" {k['name']}")
+    short = [(re.sub(r"^.*::(\w+)<.*$", r"\1", k["name"]), k)
+             for k in rep["port_kernels"]]
+    log("    the port's kernels in the step: " + "; ".join(
+        f"{name} {k['us_per_call'] / 1e3:.3f} ms x{k['count']}"
+        for name, k in short))
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def phase_train(records: dict):
+    log(f"[8] train: {TRAIN_ARCH}, the backward kernels, fp32 parity, "
+        f"bf16 at full width and depth")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def backward_checks():
+        log("  backward kernels vs autograd of the plain versions (beside "
+            "the CPU's parity step):")
+        timed(grads_flash, gen)
+        timed(grads_rglru, gen)
+
+    log(f"  fp32 parity, {TRAIN_ARCH} at full width, 3 layers, 2100 tokens:")
+    timed(train_parity, backward_checks)
+    timed(times_flash_train, gen, records)
+    timed(times_rglru_train, gen, records)
+    log(f"  bf16, full width and depth, {TRAIN_STEPS} steps of "
+        f"B{TRAIN_BATCH} x S{TRAIN_SEQ}:")
+    timed(profile_train_step, timed(train_full, records))
 
 
 def main() -> int:
@@ -1356,17 +1991,29 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     device = phase_device()
-    phase_build()
-    records = phase_kernels()
-    phase_parity()
-    phase_serve(records)
-    grid = phase_partitions(records)
-    phase_interference(records, grid)
+    timed(phase_build)
+    records = timed(phase_kernels)
+    timed(phase_parity)
+    timed(phase_serve, records)
+    # the schedulers' processes: phase 7's on the committed tables from
+    # here, phase 6's on this run's grid from the grid's end
+    procs = {"committed": start_serve(*COMMITTED_REPLAY)}
+    try:
+        grid = timed(phase_partitions, records, procs)
+        timed(phase_interference, records, grid)
+        timed(phase_train, records)
+        timed(finish_schedules, procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     log(f"total {time.perf_counter() - t0:.1f} s")
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "library_device_ms", "partition_sms",
-            "partition_ms", "partition_max_abs_err")
+            "partition_ms", "partition_max_abs_err", "fwd_bwd_ms",
+            "plain_fwd_bwd_ms", "library_fwd_bwd_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": device}))

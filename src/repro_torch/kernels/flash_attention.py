@@ -28,6 +28,25 @@ q/k/v/o are read and written through their strides, so the model's
 (B, S, H, Dh) -> (B, H, S, Dh) transpose stays a view; the bf16 kernel's
 TMA needs 16-byte aligned bases and strides, which the wrapper checks.
 The source note in ``csrc/flash_attention.cu`` has the details.
+
+The backward (``flash_attention_bwd_cuda``, ``csrc/flash_attention_bwd.cu``)
+has no TPU counterpart: the JAX package differentiates its jnp attention
+with XLA's autodiff, and its Pallas kernel has no ``custom_vjp``.  It
+computes what autograd of ``flash_attention_torch`` computes, from q, k, v
+and dO, and leaves the forward kernel as it is, so it recomputes what it
+needs: a first pass per query tile takes each row's log-sum-exp and D =
+rowsum(P * dP) in one online sweep (not rowsum(dO * O): the forward's O is
+rounded to bf16, which would reach dQ in a row whose gradient cancels);
+then dK and dV per key tile and dQ per query tile.  What bounds it on the H100: operations.  The least
+work is about 10 * Dh operations per live query-key pair (S, dP, dV, dK,
+dQ); the kernel does 18 * Dh (S and dP in each of its three passes), on
+the CUDA cores in fp32, where the bound is bf16 on the tensor cores.  dK
+and dV are taken per query head, as fp32 partials that a last pass sums
+over the GQA group in a fixed order, so a group's heads run in parallel
+and no atomics are needed.
+``flash_attention_bwd_tiles`` is a plain emulation of its tile algorithm,
+and ``FlashAttention`` the ``torch.autograd.Function`` that pairs the
+forward and backward kernels.
 """
 from __future__ import annotations
 
@@ -39,6 +58,7 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0  # launches of the CUDA kernel (plain-version calls not counted)
+bwd_launches = 0  # calls of the backward kernels' entry, one per backward
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128, 160, 256)
@@ -48,19 +68,24 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
              [ctypes.c_int64] * 12 +
              [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _lib = None  # the loaded library, once built
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 +
+                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_void_p])
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True,
                           window: int | None = None):
     """Plain version.  q: (B, H, S, Dh); k/v: (B, Hkv, S, Dh).
 
-    The math of the JAX oracle ``flash_attention_ref``: fp32 inside,
-    output in q's dtype.
+    The math of the JAX oracle ``flash_attention_ref``: fp32 inside (fp64
+    for fp64 inputs, the exact reference of the gradient checks), output
+    in q's dtype.
     """
     b, h, s, dh = q.shape
     hkv = k.shape[1]
-    qg = q.float().reshape(b, hkv, h // hkv, s, dh)
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * (
+    inner = torch.promote_types(q.dtype, torch.float32)
+    qg = q.to(inner).reshape(b, hkv, h // hkv, s, dh)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(inner)) * (
         1.0 / math.sqrt(dh))
     pos = torch.arange(s, device=q.device)
     qpos, kpos = pos[:, None], pos[None, :]
@@ -70,7 +95,7 @@ def flash_attention_torch(q, k, v, *, causal: bool = True,
     if window is not None:
         mask &= kpos > qpos - window
     probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.to(inner))
     return out.reshape(b, h, s, dh).to(q.dtype)
 
 
@@ -141,3 +166,184 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     _build.check(_lib, err, "flash_attention")
     launches += 1
     return o
+
+
+# -------------------------------------------------------------- backward --
+
+
+def bwd_tile(dh: int) -> int:
+    """Queries and keys per tile of the backward kernel
+    (``csrc/flash_attention_bwd.cu``: ``Geo<D>::T``)."""
+    return 64 if dh <= 128 else 32
+
+
+def _visible(qi, kj, causal: bool, window):
+    """(len(qi), len(kj)) mask of the query-key pairs the forward keeps."""
+    ok = torch.ones(len(qi), len(kj), dtype=torch.bool, device=qi.device)
+    if causal:
+        ok &= kj[None] <= qi[:, None]
+    if window is not None:
+        ok &= kj[None] > qi[:, None] - window
+    return ok
+
+
+def flash_attention_bwd_tiles(q, k, v, do, *, causal: bool = True,
+                              window: int | None = None):
+    """Plain emulation of the backward kernel's tile algorithm, in fp32.
+
+    q/do: (B, H, S, Dh); k/v: (B, Hkv, S, Dh).  Returns (dq, dk, dv) in
+    the dtypes of q, k and v.  The same three passes over the same tiles
+    as the kernel: the log-sum-exp of each query row and D = rowsum(P *
+    dP), online over its live key tiles; per (query head, key tile) that head's dV += P^T dO and dK +=
+    dS^T Q over the live query tiles, summed over the GQA group in order;
+    per (head, query tile) dQ += dS K.  The CPU tests hold it against autograd of
+    ``flash_attention_torch``.
+    """
+    b, h, s, dh = q.shape
+    hkv = k.shape[1]
+    group, t = h // hkv, bwd_tile(dh)
+    scale = 1.0 / math.sqrt(dh)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    pos = torch.arange(s, device=q.device)
+    lse = torch.empty(b, h, s, device=q.device)
+    delta = torch.empty(b, h, s, device=q.device)
+
+    def key_tiles(q0):
+        q_last = min(q0 + t, s) - 1
+        begin = max(0, q0 - window + 1) // t * t if window else 0
+        return range(begin, q_last + 1 if causal else s, t)
+
+    def p_ds(hq, hk, q0, k0):
+        qi, kj = pos[q0:q0 + t], pos[k0:k0 + t]
+        sc = qf[:, hq, q0:q0 + t] @ kf[:, hk, k0:k0 + t].transpose(1, 2)
+        p = torch.where(_visible(qi, kj, causal, window),
+                        torch.exp(sc * scale - lse[:, hq, q0:q0 + t, None]),
+                        0.0)
+        dp = dof[:, hq, q0:q0 + t] @ vf[:, hk, k0:k0 + t].transpose(1, 2)
+        return p, p * (dp - delta[:, hq, q0:q0 + t, None]) * scale
+
+    # pass 1: the log-sum-exp of every query row and D = rowsum(P * dP),
+    # online (a running max m, and l = sum exp(S - m), u = sum exp(S - m)
+    # dP, rescaled as m grows; lse = m + log l, D = u / l)
+    for hq in range(h):
+        for q0 in range(0, s, t):
+            qi = pos[q0:q0 + t]
+            m = torch.full((b, len(qi)), NEG_INF, device=q.device)
+            l = torch.zeros(b, len(qi), device=q.device)
+            u = torch.zeros(b, len(qi), device=q.device)
+            for k0 in key_tiles(q0):
+                kj = pos[k0:k0 + t]
+                ok = _visible(qi, kj, causal, window)
+                sc = (qf[:, hq, q0:q0 + t] @ kf[:, hq // group, k0:k0 + t]
+                      .transpose(1, 2)) * scale
+                dp = dof[:, hq, q0:q0 + t] @ vf[:, hq // group,
+                                                k0:k0 + t].transpose(1, 2)
+                sc = sc.masked_fill(~ok, NEG_INF)
+                m_new = torch.maximum(m, sc.amax(-1))
+                p = torch.where(ok, torch.exp(sc - m_new[..., None]), 0.0)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1)
+                u = u * corr + (p * dp).sum(-1)
+                m = m_new
+            lse[:, hq, q0:q0 + t] = m + torch.log(l)
+            delta[:, hq, q0:q0 + t] = u / l
+    # pass 2: each query head's share of dK, dV per key tile, then the
+    # shares of a GQA group summed in order
+    part_k = torch.zeros(b, h, s, dh, device=q.device)
+    part_v = torch.zeros(b, h, s, dh, device=q.device)
+    for hq in range(h):
+        for k0 in range(0, s, t):
+            k_last = min(k0 + t, s) - 1
+            q_begin = k0 if causal else 0
+            q_end = min(s, k_last + window) if window else s
+            for q0 in range(q_begin, q_end, t):
+                p, ds = p_ds(hq, hq // group, q0, k0)
+                part_v[:, hq, k0:k0 + t] += p.transpose(1, 2) @ dof[
+                    :, hq, q0:q0 + t]
+                part_k[:, hq, k0:k0 + t] += ds.transpose(1, 2) @ qf[
+                    :, hq, q0:q0 + t]
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for hq in range(h):
+        dk[:, hq // group] += part_k[:, hq]
+        dv[:, hq // group] += part_v[:, hq]
+    # pass 3: dQ per (head, query tile)
+    dq = torch.zeros_like(qf)
+    for hq in range(h):
+        for q0 in range(0, s, t):
+            for k0 in key_tiles(q0):
+                _, ds = p_ds(hq, hq // group, q0, k0)
+                dq[:, hq, q0:q0 + t] += ds @ kf[:, hq // group, k0:k0 + t]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _aligned16(t) -> bool:
+    """The backward's 16-byte loads: base and (batch, head, seq) strides
+    16-byte aligned, the head dim contiguous."""
+    per = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % per == 0 for st, n in zip(t.stride()[:3],
+                                                   t.shape[:3]) if n > 1))
+
+
+def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
+                             window: int | None = None):
+    """Launch the backward kernels: (dq, dk, dv) of ``flash_attention_cuda(q,
+    k, v, ...)`` for the incoming gradient ``do`` (B, H, S, Dh), each in
+    its input's dtype and layout.  Same arguments as the forward."""
+    global bwd_launches
+    _check(q, k, v, window)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError("flash_attention_bwd_cuda: do must match q's "
+                         "shape, dtype and device")
+    if not _aligned16(do):
+        do = do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned16(t):
+            raise ValueError(f"flash_attention_bwd_cuda: {name} needs "
+                             "16-byte aligned base and strides")
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return flash_attention_bwd_cuda(q, k, v, do, causal=causal,
+                                            window=window)
+    lib = _build.library("flash_attention_bwd", _BWD_ARGTYPES)
+    b, h, s, dh = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # fp32 scratch: each row's lse and D, and where a KV head serves a
+    # group, dK and dV partials per query head
+    n_stats = b * h * s
+    n_part = 2 * n_stats * dh if h > k.shape[1] else 0
+    scratch = torch.empty(2 * n_stats + n_part, dtype=torch.float32,
+                          device=q.device)
+    base = scratch.data_ptr()
+    strides = (ctypes.c_int64 * 21)(*[
+        st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]])
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        base, base + 4 * n_stats, base + 8 * n_stats if n_part else None,
+        _DTYPES[q.dtype], b, h,
+        k.shape[1], s, dh, strides, int(causal),
+        -1 if window is None else window, 1.0 / math.sqrt(dh),
+        _build.current_stream(q.device.index))
+    _build.check(lib, err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernels as its gradient (CUDA
+    tensors).  Saves q, k and v; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, do,
+                                              causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None

@@ -4,8 +4,20 @@ The JAX package selects a backend with ``impl``; the port selects it from
 the tensor's device.  A CPU tensor runs the plain PyTorch version; a CUDA
 tensor launches the hand-written kernel, and a build or launch failure
 raises (no fallback).  Any other device raises.
+
+Gradients: when grad mode is on and an input requires grad, a CUDA
+tensor's ``flash_attention`` and ``rglru_scan`` go through a
+``torch.autograd.Function`` whose backward is a kernel as well
+(``FlashAttention``, ``RGLRUScan``); ``rglru_scan`` takes its Function on
+the CPU too (the same reverse scan through the plain version), and a CPU
+``flash_attention`` or ``ssd_scan`` is differentiated by autograd through
+its plain version.  The SSD scan has no backward kernel yet, so
+``ssd_scan`` on a CUDA tensor that requires grad raises.  Without grad the
+route is the one above.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -19,12 +31,19 @@ def _route(t, name: str) -> str:
     raise ValueError(f"{name}: no implementation for device {t.device}")
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """q: (B, H, S, Dh); k/v: (B, Hkv, S, Dh).  Returns (B, H, S, Dh)."""
     if _route(q, "flash_attention") == "cpu":
         return _flash.flash_attention_torch(q, k, v, causal=causal,
                                             window=window)
+    if _wants_grad(q, k, v):
+        return _flash.FlashAttention.apply(q, k, v, causal, window)
     return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
@@ -48,6 +67,11 @@ def ssd_scan(xh, dt, a, bmat, cmat, h0=None):
     JAX entry it takes and returns the state, and any S works."""
     if _route(xh, "ssd_scan") == "cpu":
         return _ssd.ssd_scan_torch(xh, dt, a, bmat, cmat, h0)
+    if _wants_grad(xh, dt, a, bmat, cmat, h0):
+        raise NotImplementedError(
+            "ssd_scan: the SSD scan has no backward kernel on the card yet "
+            "(ROADMAP A.6.1, the SSD scan backward and mamba2-780m training "
+            "on the card); train an SSM layer on the CPU")
     return _ssd.ssd_scan_cuda(xh, dt, a, bmat, cmat, h0)
 
 
@@ -55,6 +79,9 @@ def rglru_scan(a, b, h0=None):
     """a, b: (B, S, W); h0: (B, W) or None.
 
     Returns (h_seq (B, S, W), h_last (B, W)), both fp32."""
-    if _route(a, "rglru_scan") == "cpu":
+    route = _route(a, "rglru_scan")
+    if _wants_grad(a, b, h0):
+        return _rglru.RGLRUScan.apply(a, b, h0)
+    if route == "cpu":
         return _rglru.rglru_scan_torch(a, b, h0)
     return _rglru.rglru_scan_cuda(a, b, h0)

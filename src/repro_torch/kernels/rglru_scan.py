@@ -50,6 +50,17 @@ carry + E instead of one step after another), which stays within the 1e-5
 check.
 
 ``launches`` counts calls of the entry, one a call.
+
+The backward needs no kernel of its own.  With h_t = a_t h_{t-1} + b_t, the
+total gradient G_t of h_t is the same recurrence run backwards, G_t = g_t
++ a_{t+1} G_{t+1} (g the incoming gradient of h_seq, that of h_last added
+at t = S), so ``rglru_scan_backward`` runs the scan on the flipped
+coefficients shifted by one step and the flipped g, then takes db_t = G_t,
+da_t = G_t h_{t-1} (h_0 = h0 or 0) and dh0 = a_1 G_1 elementwise.  It takes
+the scan as an argument: the CUDA kernel on the card
+(``rglru_scan_backward_cuda``, counted in ``bwd_launches`` as well as in
+``launches``), ``rglru_scan_torch`` on the CPU.  ``RGLRUScan`` is the
+``torch.autograd.Function`` that pairs the two.
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0  # launches of the CUDA kernel (plain-version calls not counted)
+bwd_launches = 0  # backward passes on the card, each one launch of the kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -147,3 +159,58 @@ def rglru_scan_cuda(a, b, h0=None):
     _build.check(lib, err, "rglru_scan")
     launches += 1
     return h_seq, h_last
+
+
+# -------------------------------------------------------------- backward --
+
+
+def rglru_scan_backward(scan, a, h_seq, h0, g_seq, g_last):
+    """Gradients (da, db, dh0) of ``h_seq, h_last = scan(a, b, h0)`` for
+    the incoming gradients ``g_seq`` (B, S, W) and ``g_last`` (B, W), all
+    fp32: the reverse recurrence G_t = g_t + a_{t+1} G_{t+1} through
+    ``scan`` on flipped inputs, then db = G, da_t = G_t h_{t-1} and dh0 =
+    a_1 G_1.  ``h_seq`` is the forward's output; ``h0`` may be None."""
+    bsz, s, w = a.shape
+    af = a.float()
+    g = g_seq.float()
+    g = torch.cat([g[:, :-1], (g[:, -1] + g_last.float())[:, None]], dim=1)
+    a_next = torch.cat([af[:, 1:], af.new_zeros(bsz, 1, w)], dim=1)
+    grad = scan(a_next.flip(1), g.flip(1))[0].flip(1)      # G_t
+    first = af.new_zeros(bsz, w) if h0 is None else h0.float()
+    h_prev = torch.cat([first[:, None], h_seq[:, :-1]], dim=1)
+    return grad * h_prev, grad, af[:, 0] * grad[:, 0]
+
+
+def rglru_scan_backward_cuda(a, h_seq, h0, g_seq, g_last):
+    """``rglru_scan_backward`` through the CUDA kernel: one launch."""
+    global bwd_launches
+    out = rglru_scan_backward(rglru_scan_cuda, a, h_seq, h0, g_seq, g_last)
+    bwd_launches += 1
+    return out
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan with ``rglru_scan_backward`` as its gradient: through the
+    CUDA kernel for a CUDA tensor, through ``rglru_scan_torch`` on the
+    CPU.  Saves a, h0 and h_seq."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        cuda = a.device.type == "cuda"
+        h_seq, h_last = (rglru_scan_cuda if cuda else rglru_scan_torch)(
+            a, b, h0)
+        ctx.save_for_backward(a, h_seq, h0)
+        ctx.cuda, ctx.b_dtype = cuda, b.dtype
+        return h_seq, h_last
+
+    @staticmethod
+    def backward(ctx, g_seq, g_last):
+        a, h_seq, h0 = ctx.saved_tensors
+        if ctx.cuda:
+            da, db, dh0 = rglru_scan_backward_cuda(a, h_seq, h0, g_seq,
+                                                   g_last)
+        else:
+            da, db, dh0 = rglru_scan_backward(rglru_scan_torch, a, h_seq, h0,
+                                              g_seq, g_last)
+        return (da.to(a.dtype), db.to(ctx.b_dtype),
+                None if h0 is None else dh0)

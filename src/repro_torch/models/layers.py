@@ -9,8 +9,8 @@ the SwiGLU gate compute in fp32 and cast back.
 Modules allocate their parameters with ``torch.empty`` on the given device
 and fill nothing: ``reset_parameters(generator)`` draws the JAX init's
 distributions (same scales, not the same numbers), and the checkpoint
-bridge copies JAX weights in instead.  Parameters carry no gradient: this
-slice of the port serves, it does not train.
+bridge copies JAX weights in instead.  Parameters are created without
+gradients (serving needs none); the trainer turns them on.
 
 Attention takes the JAX layer layout (B, S, H, Dh) and runs through the
 kernels in ``kernels/ops.py`` (the prefill flash kernel and the decode

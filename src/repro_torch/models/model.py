@@ -24,8 +24,15 @@ without a causal mask (``cfg.causal``) and ends in its own classification
 
 ``cache["len"]`` is one Python int shared by the whole batch, so the decode
 loop never waits on the device to find its ring slot.  The per-layer
-caches (KV tensors, recurrent states) are updated in place.  Training (``loss_fn``) comes with the
-training slice of the port.
+caches (KV tensors, recurrent states) are updated in place.
+
+Training: ``loss_fn(batch)`` is the JAX ``loss_fn``, the mean next-token
+cross-entropy in fp32 (a VLM's patch prefix cut off first; the audio
+encoder's against ``labels``, a label per frame) plus 0.01 times the MoE
+aux loss, with each block recomputed in the backward (``remat``).
+Parameters are created without gradients; ``training/train.py`` turns
+them on (``requires_grad_(True)``), and serving runs under
+``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -113,13 +120,42 @@ class Model(nn.Module):
         return x, torch.arange(s, device=x.device).expand(b, s)
 
     def forward(self, tokens=None, *, patch_embeds=None, frame_embeds=None,
-                window_override=None):
+                window_override=None, remat: bool = False,
+                with_aux: bool = False):
         """Full-sequence forward.  Returns logits (B, S, V), S counting a
-        VLM's patches."""
+        VLM's patches; with ``with_aux``, (logits, the summed MoE aux loss,
+        an fp32 scalar).  ``remat`` recomputes each block in the
+        backward."""
         x, positions = self._embed_inputs(tokens, patch_embeds, frame_embeds)
-        x, _ = tfm.stack_apply_seq(self.layers, x, self.cfg, positions,
-                                   window_override=window_override)
-        return self._head(self.final_norm(x))
+        x, _, aux = tfm.stack_apply_seq(self.layers, x, self.cfg, positions,
+                                        window_override=window_override,
+                                        remat=remat, with_aux=with_aux)
+        logits = self._head(self.final_norm(x))
+        return (logits, aux) if with_aux else logits
+
+    def loss_fn(self, batch: dict, *, remat: bool = True):
+        """Mean next-token (audio: per-frame) cross-entropy + 0.01 MoE aux.
+
+        ``batch``: the JAX batch keys as tensors on the model's device:
+        ``tokens`` (B, S), and ``patch_embeds`` for a VLM; the audio
+        encoder's ``frame_embeds`` (B, T, d_model) and ``labels`` (B, T).
+        """
+        logits, aux = self.forward(batch.get("tokens"),
+                                   patch_embeds=batch.get("patch_embeds"),
+                                   frame_embeds=batch.get("frame_embeds"),
+                                   remat=remat, with_aux=True)
+        if self.cfg.arch_type == "audio":
+            labels, lg = batch["labels"], logits
+        else:
+            tokens = batch["tokens"]
+            n_prefix = logits.shape[1] - tokens.shape[1]  # vlm patch prefix
+            # next-token: text logits at position i predict token i+1
+            lg = logits[:, n_prefix:-1] if tokens.shape[1] > 1 else logits
+            labels = tokens[:, 1:] if tokens.shape[1] > 1 else tokens
+        # the mean of logsumexp - gold over every position, in fp32
+        ce = F.cross_entropy(lg.float().flatten(0, 1),
+                             labels.long().flatten())
+        return ce + 0.01 * aux
 
     # ------------------------------------------------------------ cache ----
 
@@ -144,8 +180,8 @@ class Model(nn.Module):
                              "sequence with decode_step")
         x, positions = self._embed_inputs(tokens, patch_embeds, None)
         s = x.shape[1]
-        x, layers = tfm.stack_apply_seq(self.layers, x, self.cfg, positions,
-                                        caches=cache["layers"])
+        x, layers, _ = tfm.stack_apply_seq(self.layers, x, self.cfg,
+                                           positions, caches=cache["layers"])
         logits = self._head(self.final_norm(x[:, -1:]))
         return logits, {"layers": layers, "len": s}
 

@@ -69,9 +69,11 @@ class MoE(nn.Module):
             if mlp is not None:
                 mlp.reset_parameters(generator)
 
-    def forward(self, x):
-        """x: (B, S, D) -> y (B, S, D), without the aux loss."""
-        return moe_apply(self, x, self.cfg, with_aux=False)[0]
+    def forward(self, x, with_aux: bool = False):
+        """x: (B, S, D) -> (y (B, S, D), the aux loss with ``with_aux``,
+        else None).  The blocks call the layer through here, so forward
+        hooks see its input."""
+        return moe_apply(self, x, self.cfg, with_aux)
 
 
 def moe_init(cfg: ModelConfig, *, device, dtype) -> MoE:

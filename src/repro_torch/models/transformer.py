@@ -17,10 +17,18 @@ position t at ring slot ``t % size``.  The JAX ``_attention_seq`` writes
 the trailing window of a prompt longer than the cache from slot 0 instead,
 which the next decode step's write at ``len % size`` then clobbers; the
 port deliberately does not copy that.
+
+Training runs the same blocks over a full sequence: ``stack_apply_seq``
+with ``with_aux`` sums the MoE layers' aux losses (serving asks for none,
+so it launches none of their kernels), and with ``remat`` each block runs
+under ``torch.utils.checkpoint``, as the JAX package wraps each layer in
+``jax.checkpoint``: the backward recomputes a block's forward instead of
+keeping its activations.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import moe as moe_mod
@@ -148,19 +156,25 @@ def _window(kind: str, cfg: ModelConfig, window_override):
     return cfg.local_window if kind == "attn" else cfg.sliding_window
 
 
-def _feed_forward(block: Block, x, kind: str):
-    """The block's second residual half: the MLP, or the MoE layer (without
-    its aux loss, a training term), or nothing (``ssm``)."""
+def _feed_forward(block: Block, x, kind: str, with_aux: bool = False):
+    """The block's second residual half: the MLP, or the MoE layer, or
+    nothing (``ssm``).  Returns (x, aux): aux is the MoE aux loss (a
+    training term) with ``with_aux`` on an MoE block, else None."""
     if kind == "ssm":
-        return x
+        return x, None
     h = block.ln2(x)
-    return x + (block.moe(h) if kind == "moe" else block.mlp(h))
+    if kind == "moe":
+        y, aux = block.moe(h, with_aux)
+        return x + y, aux
+    return x + block.mlp(h), None
 
 
 def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
-                    cache=None, window_override=None):
-    """Full-sequence residual block.  Returns (x, cache); a recurrent
-    kind's state in ``cache`` is replaced by the state after the sequence."""
+                    cache=None, window_override=None, with_aux: bool = False):
+    """Full-sequence residual block.  Returns (x, cache, aux); a recurrent
+    kind's state in ``cache`` is replaced by the state after the sequence;
+    aux is the MoE aux loss with ``with_aux`` on an MoE block, else
+    None."""
     h = block.ln1(x)
     if kind in ATTN_KINDS:
         out, cache = _attention_seq(block.attn, h, cfg, positions,
@@ -172,7 +186,8 @@ def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
         out, state = apply(getattr(block, kind), h, cfg, cache)
         if cache is not None:
             cache.update(state)
-    return _feed_forward(block, x + out, kind), cache
+    x, aux = _feed_forward(block, x + out, kind, with_aux)
+    return x, cache, aux
 
 
 def block_apply_step(block: Block, x, kind: str, cfg: ModelConfig, cache,
@@ -189,21 +204,37 @@ def block_apply_step(block: Block, x, kind: str, cfg: ModelConfig, cache,
                 else rglru_mod.rglru_decode_step)
         out, state = step(getattr(block, kind), h, cfg, cache)
         cache.update(state)
-    return _feed_forward(block, x + out, kind), cache
+    return _feed_forward(block, x + out, kind)[0], cache
 
 
 # ----------------------------------------------------------- layer stack --
 
 
 def stack_apply_seq(layers: nn.ModuleList, x, cfg: ModelConfig, positions,
-                    caches=None, window_override=None):
-    """Run all layers over a full sequence.  Returns (x, caches)."""
+                    caches=None, window_override=None, remat: bool = False,
+                    with_aux: bool = False):
+    """Run all layers over a full sequence.  Returns (x, caches, aux): aux
+    is the sum of the MoE layers' aux losses (an fp32 scalar, 0 without MoE
+    layers) with ``with_aux``, else None.  ``remat`` recomputes each block
+    in the backward (no caches then)."""
+    if remat and caches is not None:
+        raise ValueError("remat is for training: it takes no caches")
     kinds = cfg.layer_types()
+    aux = torch.zeros((), device=x.device) if with_aux else None
     for i, block in enumerate(layers):
-        x, _ = block_apply_seq(block, x, kinds[i], cfg, positions,
-                               None if caches is None else caches[i],
-                               window_override)
-    return x, caches
+        args = (block, x, kinds[i], cfg, positions,
+                None if caches is None else caches[i], window_override,
+                with_aux)
+        if remat:
+            # the model draws no random numbers: no RNG state to replay
+            x, _, a = torch.utils.checkpoint.checkpoint(
+                block_apply_seq, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, _, a = block_apply_seq(*args)
+        if a is not None:
+            aux = aux + a
+    return x, caches, aux
 
 
 def stack_apply_step(layers: nn.ModuleList, x, cfg: ModelConfig, caches,

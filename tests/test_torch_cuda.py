@@ -464,3 +464,161 @@ def test_scans_in_flight_on_both_sides_of_a_split(cuda):
                 scale = float(w.abs().max()) + 1e-9
                 torch.testing.assert_close(g / scale, w / scale,
                                            rtol=SSD_TOL, atol=SSD_TOL)
+
+
+# ------------------------------------------------------------- gradients --
+
+
+def close_grad_rows(got, want, dtype):
+    """Gradients at the attention tolerances: fp32 1e-4 / 1e-5 (against
+    the plain version in fp64, ``plain_grads``); bf16 3e-2 / 3e-2 on
+    values divided by their row's RMS, floored at 1e-2 of the whole
+    tensor's, since a row's exact gradient may vanish (query 0's dq under a
+    causal mask: it sees key 0 alone, so dS = P (dP - D) = 0) and leave
+    only rounding to divide by."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.double(), want.double(), **FP32)
+        return
+    w = want.float()
+    floor = 1e-2 * float(w.pow(2).mean().sqrt())
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(floor) + 1e-9
+    torch.testing.assert_close(got.float() / rms, w / rms, rtol=BF16,
+                               atol=BF16)
+
+
+def plain_grads(q, k, v, do, **mask):
+    """dq, dk, dv by autograd of the plain version on the same inputs, in
+    fp64 for fp32 inputs (the fp32 plain version itself misses fp64 by
+    more than the fp32 tolerance at S 1000)."""
+    dtype = torch.float64 if q.dtype == torch.float32 else q.dtype
+    leaves = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+    out = tflash.flash_attention_torch(*leaves, **mask)
+    return torch.autograd.grad(out, leaves, do.to(dtype))
+
+
+@pytest.mark.parametrize("dh", sorted(FLASH_HEADS))
+@pytest.mark.parametrize("s", [77, 130])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_matches_autograd_of_plain_version(cuda, dh, s,
+                                                          causal, window,
+                                                          dtype):
+    """Every head dim the backward is built for, each with an arch's
+    group, from the model's (B, S, H, Dh) storage; ragged tiles; causal,
+    windowed and full masks; one backward entry call per gradient."""
+    h, hkv = FLASH_HEADS[dh]
+    rng = np.random.default_rng(dh + s + 7)
+    q, k, v = (on(cuda, rng, 2, s, n, dh).to(dtype).transpose(1, 2)
+               for n in (h, hkv, hkv))
+    do = on(cuda, rng, 2, s, h, dh).to(dtype).transpose(1, 2)
+    mask = dict(causal=causal, window=window)
+    before = tflash.bwd_launches
+    got = tflash.flash_attention_bwd_cuda(q, k, v, do, **mask)
+    want = plain_grads(q, k, v, do, **mask)
+    torch.cuda.synchronize()
+    assert tflash.bwd_launches == before + 1
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == dtype
+        assert g.stride() == x.stride()
+        close_grad_rows(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_at_the_hybrid_shape_past_its_window(cuda, dtype):
+    """recurrentgemma's heads (10 query heads on one KV head, Dh 256), a
+    window of 128 binding over 300 positions."""
+    rng = np.random.default_rng(31)
+    q, k, v = (on(cuda, rng, 1, 300, n, 256).to(dtype).transpose(1, 2)
+               for n in (10, 1, 1))
+    do = on(cuda, rng, 1, 300, 10, 256).to(dtype).transpose(1, 2)
+    got = tflash.flash_attention_bwd_cuda(q, k, v, do, window=128)
+    for g, w in zip(got, plain_grads(q, k, v, do, window=128)):
+        close_grad_rows(g, w, dtype)
+
+
+def test_flash_op_with_grad_runs_both_kernels(cuda):
+    """``ops.flash_attention`` on inputs that require grad: the forward
+    kernel once and the backward entry once, no plain version."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(32)
+    q, k, v = (on(cuda, rng, 2, 90, n, 64).transpose(1, 2)
+               .requires_grad_(True) for n in (8, 2, 2))
+    fwd, bwd = tflash.launches, tflash.bwd_launches
+    out = ops.flash_attention(q, k, v)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tflash.launches, tflash.bwd_launches) == (fwd + 1, bwd + 1)
+    for g, w in zip((q.grad, k.grad, v.grad),
+                    plain_grads(q, k, v, 2 * out.detach())):
+        close_grad_rows(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("s", [1, 33, 130, 1000])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_backward_matches_autograd_of_plain_version(cuda, s, with_h0):
+    """The reverse scan through the kernel against autograd of the
+    plain recurrence, fp32, recurrentgemma's width."""
+    rng = np.random.default_rng(s + 40)
+    a = torch.sigmoid(on(cuda, rng, 2, s, 2560)) * 0.2 + 0.8
+    bb = on(cuda, rng, 2, s, 2560, scale=0.1)
+    h0 = on(cuda, rng, 2, 2560) if with_h0 else None
+    g_seq, g_last = on(cuda, rng, 2, s, 2560), on(cuda, rng, 2, 2560)
+    h_seq, _ = trglru.rglru_scan_cuda(a, bb, h0)
+    before, fwd = trglru.bwd_launches, trglru.launches
+    got = trglru.rglru_scan_backward_cuda(a, h_seq, h0, g_seq, g_last)
+    assert (trglru.bwd_launches, trglru.launches) == (before + 1, fwd + 1)
+    leaves = [t.requires_grad_(True) for t in (a.clone(), bb.clone())]
+    if with_h0:
+        leaves.append(h0.clone().requires_grad_(True))
+    outs = trglru.rglru_scan_torch(*leaves[:2],
+                                   leaves[2] if with_h0 else None)
+    want = torch.autograd.grad(outs, leaves, (g_seq, g_last))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SCAN)
+
+
+def test_ssd_scan_with_grad_raises_on_the_card(cuda):
+    """No backward kernel for the SSD scan yet: no plain version either."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(41)
+    xh, dt, a, bmat, cmat, _ = ssd_args(cuda, rng, 1, 64, 2,
+                                        torch.float32, False)
+    xh.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6.1"):
+        ops.ssd_scan(xh, dt, a, bmat, cmat)
+
+
+def test_hybrid_train_step_on_the_card_matches_the_cpu(cuda):
+    """recurrentgemma's smoke config in fp32: the loss and every gradient
+    of one step on the card against the same weights on the CPU, and the
+    step's exact kernel launches (each block's forward runs twice under
+    remat)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    cfg = get_smoke_config("recurrentgemma-2b")
+    card = Model(cfg, dtype=torch.float32, device=cuda)
+    card.init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    toks = np.random.default_rng(42).integers(0, cfg.vocab_size, (2, 90))
+    counts = (tflash.launches, tflash.bwd_launches, trglru.launches,
+              trglru.bwd_launches)
+    losses = []
+    for model in (card, cpu):
+        model.requires_grad_(True)
+        loss = model.loss_fn({"tokens": torch.from_numpy(toks).to(
+            model.device)})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    rose = tuple(n - b for n, b in zip(
+        (tflash.launches, tflash.bwd_launches, trglru.launches,
+         trglru.bwd_launches), counts))
+    # 1 attention and 2 RG-LRU layers: forwards twice, backwards once
+    assert rose == (2, 1, 6, 2)
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        err = float((p.grad.cpu() - q.grad).abs().max())
+        assert err <= 1e-3 * float(q.grad.abs().max()), name

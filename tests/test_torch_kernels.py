@@ -7,6 +7,8 @@ same numpy inputs, at the tolerances of ``tests/test_kernels.py``.  The
 CUDA kernels themselves need the card: ``chip_smoke.py`` holds them against
 these plain versions there.  Shapes stay small: interpret mode is slow.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -182,6 +184,14 @@ def test_decode_split_plan_covers_the_cache():
         assert (n_split - 1) * chunk < s  # no split starts past the cache
 
 
+_BWD_SOURCE = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+#: the head dims and dtype codes the backward's entry dispatches
+BWD_HEAD_DIMS = {int(d) for d in re.findall(
+    r"^\s*REPRO_FLASH_BWD_CASE\((\d+)\)", _BWD_SOURCE, re.M)}
+BWD_DTYPES = {0, 1} if re.search(
+    r"dtype == 0 \? launch<DD, float>\(a, s\)[\s\\]*: launch<DD, "
+    r"__nv_bfloat16>\(a, s\)", _BWD_SOURCE) else set()
+
 #: ported archs that run on the CPU only, and why
 CPU_ONLY = {"arctic-480b": "about 960 GB of bf16 weights, twelve 80 GB "
                            "cards' worth; its GQA group of 7 is no decode "
@@ -208,6 +218,10 @@ def test_attention_kernels_are_built_for_every_ported_arch(arch):
         assert 2 * cfg.param_count() > 80e9, CPU_ONLY[arch]
         return
     assert cfg.head_dim in tflash.HEAD_DIMS
+    # the backward kernels (training) take every forward head dim, in both
+    # of the forward's dtypes, each dispatched by the CUDA entry
+    assert cfg.head_dim in BWD_HEAD_DIMS and BWD_DTYPES == set(
+        tflash._DTYPES.values())
     if not cfg.has_decoder:
         assert cfg.arch_type == "audio" and not cfg.causal
         return

@@ -98,6 +98,27 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
         assert out.returncode != 0 and out.stdout == ""
 
 
+def test_chip_smoke_runs_the_schedulers_in_a_process_of_their_own():
+    """The smoke's scheduler work (phases 6 and 7: ``launch/serve.py`` on a
+    table) runs in a process of its own, beside the card's phases; its
+    output is read back whole, and a run that fails, fails the smoke."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    proc = smoke.start_serve("--results", str(smoke.COMMITTED["lbp"]),
+                             "--gpus", "4", "--replay", "--no-interference",
+                             "--horizon-s", "1")
+    result = smoke.finish_serve(proc, "schedulers")
+    assert proc.returncode == 0 and proc.out.closed
+    assert result["replay"]["conserved"] and result["replay"]["total"] > 0
+    assert result["source"] == str(smoke.COMMITTED["lbp"])
+    with pytest.raises(AssertionError, match="exited"):
+        smoke.finish_serve(smoke.start_serve("--results", str(
+            ROOT / "results" / "no_such_table.jsonl")), "missing table")
+
+
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 
 
