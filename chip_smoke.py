@@ -12,8 +12,9 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    ``nvcc`` (sm_90a), in parallel, and ``ptxas``'s register / spill
    report of every kernel instantiation; then, from ``cuobjdump -sass``,
    the tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions of each
-   bf16 flash instantiation, which must have both, and the tensor-core
-   (``HMMA``) instructions of the bf16 SSD kernel, which must have some;
+   bf16 flash instantiation, forward and backward, which must have both,
+   and the tensor-core (``HMMA``) instructions of the bf16 SSD kernel,
+   which must have some;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the serving shapes, at the tolerances of the JAX package's
    ``tests/test_kernels.py`` (bf16 attention: relative to each output
@@ -117,7 +118,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    width over 2100 tokens, card against CPU (loss, every gradient, the
    parameters after the AdamW step, within ``PARITY_REL``), and the card
    model's checkpoint read back through the bridge bit for bit; each
-   kernel at the training shape held against its plain version, then
+   kernel at the training shape held against its plain version (the
+   flash backward also against a second call, bitwise), then
    timed beside the plain versions' and SDPA's forward + backward; then ``repro_torch.launch.train`` at
    full width and depth, bf16, 8 steps of B4 x S1024: every loss and grad
    norm finite, the last loss below the first, and each kernel's launch
@@ -219,6 +221,10 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
 TRAIN_PATH = f"train:{TRAIN_ARCH}"
 # a bf16 gradient row's RMS is floored at this share of the tensor's RMS
 GRAD_ROW_FLOOR = 1e-2
+# the flash backward's first version (CUDA cores, fp32 tiles) at the
+# training shape on an H100 80GB HBM3 at 700 W (PERF.md), printed beside
+# this run's time
+CUDA_CORE_BWD_MS = 5.7713
 CKPT_DIR = ROOT / "results/out"  # ignored by git; the checkpoint is removed
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
@@ -435,6 +441,26 @@ def sass_counts(build):
     if found != 5:
         raise AssertionError(f"found {found} bf16 flash instantiations in "
                              "the SASS, expected 5 (Dh 64/80/128/160/256)")
+    # the backward: per head dim the rows kernel (lse, D, dQ) and the kv
+    # kernel (dK, dV) with bf16 gradients (group 1) or fp32 partials
+    found = 0
+    for block in sass_of("flash_attention_bwd").split("Function : ")[1:]:
+        m = re.match(r"\S*(flash_bwd_\w+_bf16)ILi(\d+)E(\w*)", block)
+        if not m:
+            continue
+        found += 1
+        out = "" if m.group(1).endswith("rows_bf16") else (
+            ", fp32 partials" if m.group(3).startswith("f") else ", bf16")
+        n_mma = block.count("HGMMA")
+        n_tma = block.count("UTMALDG")
+        log(f"  flash backward {m.group(1)} Dh {m.group(2)}{out}: {n_mma} "
+            f"HGMMA, {n_tma} UTMALDG in its SASS")
+        if not n_mma or not n_tma:
+            raise AssertionError(f"{m.group(1)} Dh {m.group(2)} has no "
+                                 "tensor-core or TMA instruction")
+    if found != 15:
+        raise AssertionError(f"found {found} bf16 flash backward "
+                             "instantiations in the SASS, expected 15")
 
 
 def _randn(gen, *shape, dtype):
@@ -1595,11 +1621,17 @@ def times_flash_train(gen, records):
 
     fwd_err = check_close(f"flash forward at the training shape [{shape}]",
                           kernel_fwd(*sets[0]), plain_fwd(*sets[0]), dtype)
+    got = kernel_bwd(*sets[0])
     bwd_err = max(check_grad(f"flash backward at the training shape "
                              f"[{shape}] {what}", g, w, dtype)
-                  for what, g, w in zip(("dq", "dk", "dv"),
-                                        kernel_bwd(*sets[0]),
+                  for what, g, w in zip(("dq", "dk", "dv"), got,
                                         plain_both(*sets[0])))
+    if not all(torch.equal(g, a) for g, a in zip(got, kernel_bwd(*sets[0]))):
+        raise AssertionError("two calls of the flash backward on the same "
+                             "inputs gave different gradients")
+    log("  flash backward at the training shape: a second call on the same "
+        "inputs bitwise equal (dq, dk, dv)")
+    del got
 
     lib_sets = [[t.detach().requires_grad_(True) for t in (
         q, _repeat_kv(k.transpose(1, 2), h).transpose(1, 2),
@@ -1656,7 +1688,8 @@ def times_flash_train(gen, records):
         f"operations a live pair, {10 * dh * pairs:.3g}; {bwd_bytes:.3g} "
         f"bytes); forward + backward: kernels {ms_both:.4f} ms, plain "
         f"{plain_both_ms:.4f} ms, SDPA {sdpa_both_ms:.4f} ms; backward "
-        f"alone: plain {plain_bwd_ms:.4f} ms, SDPA {sdpa_bwd_ms:.4f} ms")
+        f"alone: plain {plain_bwd_ms:.4f} ms, SDPA {sdpa_bwd_ms:.4f} ms, "
+        f"the CUDA-core version {CUDA_CORE_BWD_MS} ms")
     del sets
 
 

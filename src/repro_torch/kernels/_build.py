@@ -8,8 +8,9 @@ a plain ``extern "C"`` interface:
 
 No PyTorch header is included, so a build takes seconds, not minutes.  The
 library lands in ``repro_torch/_build/`` (ignored by git) under a name
-keyed on a hash of the source and the flags, so a stale library is never
-loaded.  ``build`` starts one ``nvcc`` per missing source, all at once.
+keyed on a hash of the source, the shared headers ``csrc/*.cuh`` and the
+flags, so a stale library is never loaded.  ``build`` starts one ``nvcc``
+per missing source, all at once.
 
 Every library exports ``<name>_launch`` (returns ``cudaGetLastError()``
 after its launches) and ``cuda_error_string``.  A failed build or launch
@@ -57,6 +58,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -154,9 +157,10 @@ def check(lib: ctypes.CDLL, err: int, name: str):
 
 
 def ptxas_report(name: str) -> str:
-    """The ptxas lines of the last build of ``name`` (empty if none)."""
+    """The ptxas lines of the last build of ``name`` (empty if none), with
+    each function's stack frame and spills."""
     log = library_path(name).with_suffix(".log")
     if not log.exists():
         return ""
     return "\n".join(line for line in log.read_text().splitlines()
-                     if "ptxas" in line)
+                     if "ptxas" in line or "spill" in line)

@@ -34,19 +34,25 @@ has no TPU counterpart: the JAX package differentiates its jnp attention
 with XLA's autodiff, and its Pallas kernel has no ``custom_vjp``.  It
 computes what autograd of ``flash_attention_torch`` computes, from q, k, v
 and dO, and leaves the forward kernel as it is, so it recomputes what it
-needs: a first pass per query tile takes each row's log-sum-exp and D =
-rowsum(P * dP) in one online sweep (not rowsum(dO * O): the forward's O is
-rounded to bf16, which would reach dQ in a row whose gradient cancels);
-then dK and dV per key tile and dQ per query tile.  What bounds it on the H100: operations.  The least
-work is about 10 * Dh operations per live query-key pair (S, dP, dV, dK,
-dQ); the kernel does 18 * Dh (S and dP in each of its three passes), on
-the CUDA cores in fp32, where the bound is bf16 on the tensor cores.  dK
-and dV are taken per query head, as fp32 partials that a last pass sums
-over the GQA group in a fixed order, so a group's heads run in parallel
-and no atomics are needed.
-``flash_attention_bwd_tiles`` is a plain emulation of its tile algorithm,
-and ``FlashAttention`` the ``torch.autograd.Function`` that pairs the
-forward and backward kernels.
+needs.  What bounds it on the H100: operations.  The least work is about
+10 * Dh operations per live query-key pair (S, dP, dV, dK, dQ); the
+kernels do 18 * Dh (S and dP twice in the first pass, once in the
+second).  bf16 runs on the tensor cores (``wgmma``, tiles by TMA through
+a two-stage ring, tiles of 64 queries or keys): a first kernel per query
+tile sweeps the live key tiles twice, once for each row's log-sum-exp and
+D = rowsum(P * dP) (not rowsum(dO * O): the forward's O is rounded to
+bf16, which would reach dQ in a row whose gradient cancels) and once for
+dQ += dS K; a second kernel per (query head, key tile) takes dV += P^T dO
+and dK += dS^T Q over the live query tiles, one consumer warpgroup for
+each, P and dS rounded to bf16 as the products' register operand.  dK and
+dV are taken per query head, as fp32 partials that a last pass sums over
+the GQA group in a fixed order, so a group's heads run in parallel, no
+atomics are needed and two calls give bitwise-equal gradients.  fp32 (the
+card-vs-CPU parity path, held to fp64) keeps the CUDA-core kernels of the
+first version: TF32 would miss its tolerance.
+``flash_attention_bwd_tiles`` is a plain emulation of the bf16 kernels'
+tile algorithm, and ``FlashAttention`` the ``torch.autograd.Function``
+that pairs the forward and backward kernels.
 """
 from __future__ import annotations
 
@@ -171,10 +177,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
 # -------------------------------------------------------------- backward --
 
 
-def bwd_tile(dh: int) -> int:
-    """Queries and keys per tile of the backward kernel
-    (``csrc/flash_attention_bwd.cu``: ``Geo<D>::T``)."""
-    return 64 if dh <= 128 else 32
+# queries or keys a tile of the bf16 backward kernels
+# (``csrc/flash_attention_bwd.cu``: ``BT``, wgmma's M)
+BWD_TILE = 64
 
 
 def _visible(qi, kj, causal: bool, window):
@@ -189,20 +194,27 @@ def _visible(qi, kj, causal: bool, window):
 
 def flash_attention_bwd_tiles(q, k, v, do, *, causal: bool = True,
                               window: int | None = None):
-    """Plain emulation of the backward kernel's tile algorithm, in fp32.
+    """Plain emulation of the bf16 backward kernels' tile algorithm, in fp32.
 
     q/do: (B, H, S, Dh); k/v: (B, Hkv, S, Dh).  Returns (dq, dk, dv) in
-    the dtypes of q, k and v.  The same three passes over the same tiles
-    as the kernel: the log-sum-exp of each query row and D = rowsum(P *
-    dP), online over its live key tiles; per (query head, key tile) that head's dV += P^T dO and dK +=
-    dS^T Q over the live query tiles, summed over the GQA group in order;
-    per (head, query tile) dQ += dS K.  The CPU tests hold it against autograd of
-    ``flash_attention_torch``.
+    the dtypes of q, k and v.  The kernels' two passes over tiles of
+    ``BWD_TILE`` queries or keys: per (head, query tile) a first sweep over
+    the live key tiles for each row's log-sum-exp and D = rowsum(P * dP),
+    online, and a second for dQ += dS K; per (query head, key tile) dV +=
+    P^T dO and dK += dS^T Q over the live query tiles, summed over the GQA
+    group in order.  1/sqrt(Dh) scales dQ and dK after the products.  For
+    bf16 inputs P and dS are rounded to bf16 where the kernels round them,
+    as the products' register operand; fp32 inputs keep them in fp32 (the
+    algebra of the fp32 kernels).  The CPU tests hold it against autograd
+    of ``flash_attention_torch``.
     """
     b, h, s, dh = q.shape
-    hkv = k.shape[1]
-    group, t = h // hkv, bwd_tile(dh)
+    group, t = h // k.shape[1], BWD_TILE
     scale = 1.0 / math.sqrt(dh)
+
+    def rnd(x):
+        return x.bfloat16().float() if q.dtype == torch.bfloat16 else x
+
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     pos = torch.arange(s, device=q.device)
     lse = torch.empty(b, h, s, device=q.device)
@@ -213,72 +225,70 @@ def flash_attention_bwd_tiles(q, k, v, do, *, causal: bool = True,
         begin = max(0, q0 - window + 1) // t * t if window else 0
         return range(begin, q_last + 1 if causal else s, t)
 
-    def p_ds(hq, hk, q0, k0):
-        qi, kj = pos[q0:q0 + t], pos[k0:k0 + t]
-        sc = qf[:, hq, q0:q0 + t] @ kf[:, hk, k0:k0 + t].transpose(1, 2)
-        p = torch.where(_visible(qi, kj, causal, window),
-                        torch.exp(sc * scale - lse[:, hq, q0:q0 + t, None]),
-                        0.0)
-        dp = dof[:, hq, q0:q0 + t] @ vf[:, hk, k0:k0 + t].transpose(1, 2)
-        return p, p * (dp - delta[:, hq, q0:q0 + t, None]) * scale
+    def query_tiles(k0):
+        k_last = min(k0 + t, s) - 1
+        end = min(s, k_last + window) if window else s
+        return range(k0 if causal else 0, end, t)
 
-    # pass 1: the log-sum-exp of every query row and D = rowsum(P * dP),
-    # online (a running max m, and l = sum exp(S - m), u = sum exp(S - m)
-    # dP, rescaled as m grows; lse = m + log l, D = u / l)
+    def logits(hq, q0, k0):
+        """The scaled logits (masked: -inf) and dP of one pair of tiles."""
+        qi, kj = pos[q0:q0 + t], pos[k0:k0 + t]
+        sc = qf[:, hq, q0:q0 + t] @ kf[:, hq // group, k0:k0 + t].mT
+        dp = dof[:, hq, q0:q0 + t] @ vf[:, hq // group, k0:k0 + t].mT
+        return (sc * scale).masked_fill(~_visible(qi, kj, causal, window),
+                                        -math.inf), dp
+
+    # kernel 1, per (head, query tile): sweep 1, the log-sum-exp and D of
+    # every row, online (a running max m, and l = sum exp(S - m), u = sum
+    # exp(S - m) dP, rescaled as m grows; lse = m + log l, D = u / l);
+    # sweep 2, dQ += dS K with dS = P (dP - D)
+    dq = torch.zeros_like(qf)
     for hq in range(h):
         for q0 in range(0, s, t):
-            qi = pos[q0:q0 + t]
-            m = torch.full((b, len(qi)), NEG_INF, device=q.device)
-            l = torch.zeros(b, len(qi), device=q.device)
-            u = torch.zeros(b, len(qi), device=q.device)
+            rows = len(pos[q0:q0 + t])
+            m = torch.full((b, rows), NEG_INF, device=q.device)
+            l = torch.zeros(b, rows, device=q.device)
+            u = torch.zeros(b, rows, device=q.device)
             for k0 in key_tiles(q0):
-                kj = pos[k0:k0 + t]
-                ok = _visible(qi, kj, causal, window)
-                sc = (qf[:, hq, q0:q0 + t] @ kf[:, hq // group, k0:k0 + t]
-                      .transpose(1, 2)) * scale
-                dp = dof[:, hq, q0:q0 + t] @ vf[:, hq // group,
-                                                k0:k0 + t].transpose(1, 2)
-                sc = sc.masked_fill(~ok, NEG_INF)
+                sc, dp = logits(hq, q0, k0)
                 m_new = torch.maximum(m, sc.amax(-1))
-                p = torch.where(ok, torch.exp(sc - m_new[..., None]), 0.0)
+                p = torch.exp(sc - m_new[..., None])
                 corr = torch.exp(m - m_new)
                 l = l * corr + p.sum(-1)
                 u = u * corr + (p * dp).sum(-1)
                 m = m_new
+            l = l.clamp_min(1e-30)
             lse[:, hq, q0:q0 + t] = m + torch.log(l)
             delta[:, hq, q0:q0 + t] = u / l
-    # pass 2: each query head's share of dK, dV per key tile, then the
-    # shares of a GQA group summed in order
+            for k0 in key_tiles(q0):
+                sc, dp = logits(hq, q0, k0)
+                ds = torch.exp(sc - lse[:, hq, q0:q0 + t, None]) * (
+                    dp - delta[:, hq, q0:q0 + t, None])
+                dq[:, hq, q0:q0 + t] += rnd(ds) @ kf[:, hq // group,
+                                                     k0:k0 + t]
+    # kernel 2, per (query head, key tile): that head's share of dK and dV
+    # over the live query tiles; then the shares of a GQA group summed in
+    # order
     part_k = torch.zeros(b, h, s, dh, device=q.device)
     part_v = torch.zeros(b, h, s, dh, device=q.device)
     for hq in range(h):
         for k0 in range(0, s, t):
-            k_last = min(k0 + t, s) - 1
-            q_begin = k0 if causal else 0
-            q_end = min(s, k_last + window) if window else s
-            for q0 in range(q_begin, q_end, t):
-                p, ds = p_ds(hq, hq // group, q0, k0)
-                part_v[:, hq, k0:k0 + t] += p.transpose(1, 2) @ dof[
-                    :, hq, q0:q0 + t]
-                part_k[:, hq, k0:k0 + t] += ds.transpose(1, 2) @ qf[
-                    :, hq, q0:q0 + t]
+            for q0 in query_tiles(k0):
+                sc, dp = logits(hq, q0, k0)
+                p = torch.exp(sc - lse[:, hq, q0:q0 + t, None])
+                ds = p * (dp - delta[:, hq, q0:q0 + t, None])
+                part_v[:, hq, k0:k0 + t] += rnd(p).mT @ dof[:, hq, q0:q0 + t]
+                part_k[:, hq, k0:k0 + t] += rnd(ds).mT @ qf[:, hq, q0:q0 + t]
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for hq in range(h):
-        dk[:, hq // group] += part_k[:, hq]
+        dk[:, hq // group] += part_k[:, hq] * scale
         dv[:, hq // group] += part_v[:, hq]
-    # pass 3: dQ per (head, query tile)
-    dq = torch.zeros_like(qf)
-    for hq in range(h):
-        for q0 in range(0, s, t):
-            for k0 in key_tiles(q0):
-                _, ds = p_ds(hq, hq // group, q0, k0)
-                dq[:, hq, q0:q0 + t] += ds @ kf[:, hq // group, k0:k0 + t]
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return ((dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def _aligned16(t) -> bool:
-    """The backward's 16-byte loads: base and (batch, head, seq) strides
-    16-byte aligned, the head dim contiguous."""
+    """The backward's 16-byte loads (fp32) and TMA tiles (bf16): base and
+    (batch, head, seq) strides 16-byte aligned, the head dim contiguous."""
     per = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st % per == 0 for st, n in zip(t.stride()[:3],
@@ -316,7 +326,7 @@ def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
                           device=q.device)
     base = scratch.data_ptr()
     strides = (ctypes.c_int64 * 21)(*[
-        st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]])
+        st for t in (q, k, v, do, dq, dk, dv) for st in _strides(t)])
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -537,6 +537,45 @@ def test_flash_backward_at_the_hybrid_shape_past_its_window(cuda, dtype):
         close_grad_rows(g, w, dtype)
 
 
+@pytest.mark.parametrize("dh", sorted(FLASH_HEADS))
+@pytest.mark.parametrize("group", [1, 8, 10, 16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None)])
+def test_flash_backward_bf16_at_every_group(cuda, dh, group, causal,
+                                            window):
+    """The tensor-core backward at every head dim it is built for and the
+    groups of the archs (1, 8, 10, 16 query heads a KV head, two KV
+    heads), causal, windowed and full, S ragged against its 64-row
+    tiles."""
+    rng = np.random.default_rng(dh + group)
+    q, k, v = (on(cuda, rng, 2, 130, n, dh).bfloat16().transpose(1, 2)
+               for n in (2 * group, 2, 2))
+    do = on(cuda, rng, 2, 130, 2 * group, dh).bfloat16().transpose(1, 2)
+    mask = dict(causal=causal, window=window)
+    got = tflash.flash_attention_bwd_cuda(q, k, v, do, **mask)
+    want = plain_grads(q, k, v, do, **mask)
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.stride() == x.stride()
+        close_grad_rows(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("h,hkv,dh", [(10, 1, 256), (16, 16, 80),
+                                      (32, 2, 128)])
+def test_flash_backward_bf16_is_deterministic(cuda, h, hkv, dh):
+    """Two calls on the same inputs give bitwise-equal dq, dk and dv (the
+    group's partials are summed in a fixed order, no atomics)."""
+    rng = np.random.default_rng(h + dh)
+    q, k, v = (on(cuda, rng, 2, 300, n, dh).bfloat16().transpose(1, 2)
+               for n in (h, hkv, hkv))
+    do = on(cuda, rng, 2, 300, h, dh).bfloat16().transpose(1, 2)
+    first = tflash.flash_attention_bwd_cuda(q, k, v, do)
+    second = tflash.flash_attention_bwd_cuda(q, k, v, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_op_with_grad_runs_both_kernels(cuda):
     """``ops.flash_attention`` on inputs that require grad: the forward
     kernel once and the backward entry once, no plain version."""

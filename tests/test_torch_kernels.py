@@ -189,8 +189,8 @@ _BWD_SOURCE = (_build.CSRC / "flash_attention_bwd.cu").read_text()
 BWD_HEAD_DIMS = {int(d) for d in re.findall(
     r"^\s*REPRO_FLASH_BWD_CASE\((\d+)\)", _BWD_SOURCE, re.M)}
 BWD_DTYPES = {0, 1} if re.search(
-    r"dtype == 0 \? launch<DD, float>\(a, s\)[\s\\]*: launch<DD, "
-    r"__nv_bfloat16>\(a, s\)", _BWD_SOURCE) else set()
+    r"dtype == 0 \? launch_fp32<DD>\(a, s\)[\s\\]*: "
+    r"launch_bf16<DD>\(a, s\)", _BWD_SOURCE) else set()
 
 #: ported archs that run on the CPU only, and why
 CPU_ONLY = {"arctic-480b": "about 960 GB of bf16 weights, twelve 80 GB "

@@ -333,30 +333,72 @@ def test_rglru_reverse_scan_matches_autograd(s, with_h0, a_range):
         torch.testing.assert_close(g, w, **SCAN)
 
 
-@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window", [
+FLASH_BWD_CASES = [
     (2, 4, 2, 77, 64, True, None),     # causal, GQA, ragged S
     (2, 4, 2, 130, 64, True, 40),      # windowed
-    (1, 4, 1, 70, 160, False, None),   # full, tiles of 32
+    (1, 4, 1, 70, 160, False, None),   # full, Dh 160 padded to 192
     (2, 2, 2, 50, 80, False, 16),      # window without a causal mask
     (1, 10, 1, 100, 256, True, 64),    # recurrentgemma's heads
-])
-def test_flash_backward_tiles_match_autograd(b, h, hkv, s, dh, causal,
-                                             window):
-    """The plain emulation of the backward kernel's tile algorithm (lse
-    and D, dK / dV per KV head and key tile over the group's heads, dQ per
-    query tile) against autograd of ``flash_attention_torch``."""
+    (1, 10, 1, 260, 256, True, 100),   # 64-row tiles at Dh 256, the window
+                                       # binding across them
+]
+
+
+def bf16_rows_err(got, want) -> float:
+    """Worst error at the card's bf16 gradient check: |got - want| / (row
+    RMS + |want|), the RMS over Dh floored at 1e-2 of the tensor's (it
+    must stay below 3e-2)."""
+    w = want.float()
+    floor = 1e-2 * float(w.pow(2).mean().sqrt())
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(floor)
+    return float(((got.float() - w).abs() / (rms + w.abs())).max())
+
+
+def flash_grad_case(b, h, hkv, s, dh, causal, window, dtype):
+    """q, k, v (from (B, S, H, Dh) storage), dO, and autograd's gradients
+    of ``flash_attention_torch`` on them."""
     rng = np.random.default_rng(dh + s)
-    q, k, v = (randn(rng, b, s, n, dh).transpose(1, 2)
+    q, k, v = (randn(rng, b, s, n, dh).to(dtype).transpose(1, 2)
                for n in (h, hkv, hkv))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     o = tflash.flash_attention_torch(*leaves, causal=causal, window=window)
-    do = randn(rng, b, h, s, dh)
-    want = torch.autograd.grad(o, leaves, do)
-    got = tflash.flash_attention_bwd_tiles(q, k, v, do,
-                                           causal=causal, window=window)
-    for g, w, x in zip(got, want, (q, k, v)):
+    do = randn(rng, b, h, s, dh).to(dtype)
+    return (q, k, v, do), torch.autograd.grad(o, leaves, do)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window", FLASH_BWD_CASES)
+def test_flash_backward_tiles_match_autograd(b, h, hkv, s, dh, causal,
+                                             window):
+    """The plain emulation of the backward kernels' tile algorithm (per
+    query tile lse and D, then dQ; per query head and key tile dK / dV,
+    summed over the group's heads) in fp32 against autograd of
+    ``flash_attention_torch``."""
+    inputs, want = flash_grad_case(b, h, hkv, s, dh, causal, window,
+                                   torch.float32)
+    got = tflash.flash_attention_bwd_tiles(*inputs, causal=causal,
+                                           window=window)
+    for g, w, x in zip(got, want, inputs):
         assert g.shape == x.shape
         torch.testing.assert_close(g, w, **FP32)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh,causal,window", FLASH_BWD_CASES)
+def test_flash_backward_tiles_in_bf16_match_autograd(b, h, hkv, s, dh,
+                                                     causal, window):
+    """The same in bf16, P and dS rounded to bf16 before the products as
+    the tensor-core kernels round them, against autograd of the plain
+    version on the same bf16 inputs at the card's bf16 check; and the
+    rounding is there (the fp32 emulation of the same values differs)."""
+    inputs, want = flash_grad_case(b, h, hkv, s, dh, causal, window,
+                                   torch.bfloat16)
+    got = tflash.flash_attention_bwd_tiles(*inputs, causal=causal,
+                                           window=window)
+    for g, w, x in zip(got, want, inputs):
+        assert g.shape == x.shape and g.dtype == torch.bfloat16
+        assert bf16_rows_err(g, w) < 3e-2
+    unrounded = tflash.flash_attention_bwd_tiles(
+        *(t.float() for t in inputs), causal=causal, window=window)
+    assert not torch.equal(got[0].float(), unrounded[0].bfloat16().float())
 
 
 def test_flash_backward_tiles_in_bf16_hold_cancelling_rows():
@@ -374,14 +416,8 @@ def test_flash_backward_tiles_in_bf16_hold_cancelling_rows():
     o = tflash.flash_attention_torch(*leaves)
     want = torch.autograd.grad(o, leaves, do)
 
-    def worst(got, want):
-        w = want.float()
-        floor = 1e-2 * float(w.pow(2).mean().sqrt())
-        rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(floor)
-        return float(((got.float() - w).abs() / (rms + w.abs())).max())
-
     got = tflash.flash_attention_bwd_tiles(q, k, v, do)
-    assert max(worst(g, w) for g, w in zip(got, want)) < 3e-2
+    assert max(bf16_rows_err(g, w) for g, w in zip(got, want)) < 3e-2
     # the same dq with D from the bf16 output
     qf, kf, vf = (t.float().repeat_interleave(4 if t is not q else 1, 1)
                   for t in (q, k, v))
@@ -391,7 +427,7 @@ def test_flash_backward_tiles_in_bf16_hold_cancelling_rows():
     dp = do.float() @ vf.transpose(-1, -2)
     d_from_o = (do.float() * o.detach().float()).sum(-1, keepdim=True)
     dq_from_o = (p * (dp - d_from_o) / 8.0) @ kf
-    assert worst(dq_from_o, want[0]) > 3e-2
+    assert bf16_rows_err(dq_from_o, want[0]) > 3e-2
 
 
 # ------------------------------------------------------------ checkpoint --
