@@ -8,7 +8,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
 1. device: the card's name, count and ``nvidia-smi`` name / power limit;
    TF32 off for matmuls and cuDNN, so fp32 means fp32;
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` (the four TPU
-   kernels' counterparts, the flash backward and the partition probe) with
+   kernels' counterparts, the flash and SSD backward passes and the
+   partition probe) with
    ``nvcc`` (sm_90a), in parallel, and ``ptxas``'s register / spill
    report of every kernel instantiation; then, from ``cuobjdump -sass``,
    the tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions of each
@@ -105,7 +106,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    which must conserve its requests (these last from the committed tables
    alone, in a process of their own started before phase 6 and printed
    after phase 8);
-8. train (recurrentgemma-2b, ``TRAIN_ARCH``): the flash backward against
+8. train (recurrentgemma-2b, ``TRAIN_ARCH``, and mamba2-780m,
+   ``SSM_ARCH``): the flash backward against
    autograd of the plain version (dq, dk, dv; bf16 and fp32; at
    recurrentgemma-2b's heads at S 1000 and at S 2100 with its 2048 window
    binding, yi-9b's and chatglm3-6b's groups, every other head dim at a
@@ -120,22 +122,33 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    model's checkpoint read back through the bridge bit for bit; each
    kernel at the training shape held against its plain version (the
    flash backward also against a second call, bitwise), then
-   timed beside the plain versions' and SDPA's forward + backward; then ``repro_torch.launch.train`` at
-   full width and depth, bf16, 8 steps of B4 x S1024: every loss and grad
-   norm finite, the last loss below the first, and each kernel's launch
-   count (set to 0 before, read after) exactly the path's: per step 16
+   timed beside the plain versions' and SDPA's forward + backward; the
+   SSD backward against autograd of the plain version (bf16 and fp32 x /
+   B / C at mamba2's heads, S 1000, 1024 and the chunk edges 1, 63, 64,
+   65, with and without h0 and a gradient of h_final, B / C slices of one
+   projection; every gradient divided by its max, at ``SSD_TOL``; the
+   fp32 cases at S 1000 also against the plain version in fp64) while the
+   CPU computes its side of the same fp32 train step of a 3-layer
+   mamba2-780m over 1100 tokens (no chunk multiple); the SSD forward and
+   backward at mamba2's training shape held against their plain versions
+   (the backward also against a second call, bitwise), then timed; then
+   ``repro_torch.launch.train`` at full width and depth, bf16, 8 steps of
+   B4 x S1024, for each of the two: every loss and grad norm finite, the
+   last loss below the first, and each kernel's launch count (set to 0
+   before, read after) exactly the path's: recurrentgemma-2b per step 16
    flash forwards (8 layers, each recomputed under remat), 8 flash
    backwards, 54 RG-LRU scans of which 18 backward, no decode or SSD
-   scan; and one more step traced by the profiler (device busy, kernel
-   time by family).
+   scan; mamba2-780m per step 96 SSD scans (48 layers, each recomputed)
+   and 48 SSD backwards, nothing else; and one more step of each traced
+   by the profiler (device busy, kernel time by family).
 
 The line before the last is the kernels' JSON record (one entry per kernel
 and served model, one for the grid's decode launches and one for the
 co-run's; ``partition_ms`` is a kernel's time on the smallest partition);
 the last line is ``{"ok": true, "device": {...}}``.  Phase 8 adds the
-training path's records (``path`` ``train:recurrentgemma-2b``): the
-forward kernels and the two backward passes at the training shape, with
-``fwd_bwd_ms`` beside each backward's time.
+training paths' records (``path`` ``train:recurrentgemma-2b`` and
+``train:mamba2-780m``): the forward kernels and the three backward passes
+at the training shapes, with ``fwd_bwd_ms`` beside each backward's time.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits nonzero and prints no result.
 """
@@ -215,10 +228,16 @@ COMMITTED_REPLAY = (
 CORUN_CARVE, CORUN_BATCH = 40, 8  # the co-run subset: 56 + 76 SMs, batch 8
 MIN_FACTOR = 0.95  # a co-run faster than solo by more than this is a fault
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
-# phase 8: the model trained at full width and depth, and its shape
+# phase 8: the models trained at full width and depth, and their shape
 TRAIN_ARCH = "recurrentgemma-2b"
+SSM_ARCH = "mamba2-780m"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
 TRAIN_PATH = f"train:{TRAIN_ARCH}"
+SSM_PATH = f"train:{SSM_ARCH}"
+# the fp32 card-vs-CPU step: (layers, tokens) of each trained model; 2100
+# binds recurrentgemma's 2048 window, 1100 is no multiple of the SSD chunk
+PARITY_SHAPE = {TRAIN_ARCH: (3, 2100), SSM_ARCH: (3, 1100)}
+SSD_GRADS = ("dx", "ddt", "da", "dB", "dC", "dh0")
 # a bf16 gradient row's RMS is floored at this share of the tensor's RMS
 GRAD_ROW_FLOOR = 1e-2
 # the flash backward's first version (CUDA cores, fp32 tiles) at the
@@ -235,8 +254,10 @@ REPLACES = {
 # the backward passes: no TPU kernel has one; each backs the forward it
 # differentiates, from its own source (RG-LRU's runs the forward kernel)
 REPLACES.update(flash_attention_backward=REPLACES["flash_attention"],
+                ssd_scan_backward=REPLACES["ssd_scan"],
                 rglru_scan_backward=REPLACES["rglru_scan"])
 SOURCE = {"flash_attention_backward": "flash_attention_bwd",
+          "ssd_scan_backward": "ssd_scan_bwd",
           "rglru_scan_backward": "rglru_scan"}
 
 
@@ -1581,6 +1602,70 @@ def grads_rglru(gen):
         del a, b, h0, g_seq, h_seq, got, leaves, outs, want
 
 
+def plain_ssd_grads(args, dy, dh_final, dtype=torch.float32):
+    """Autograd of ``ssd_scan_torch`` on ``args`` widened to ``dtype``
+    (exact for bf16 inputs): dx, ddt, da, dB, dC (and dh0 with h0)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    leaves = [t.detach().to(dtype).requires_grad_(True)
+              for t in args if t is not None]
+    y, h_final = ssd.ssd_scan_torch(*leaves[:5],
+                                    leaves[5] if len(leaves) == 6 else None)
+    outs, grads = [y], [dy.to(dtype)]
+    if dh_final is not None:
+        outs.append(h_final)
+        grads.append(dh_final.to(dtype))
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+def check_ssd_grads(name, got, want) -> float:
+    """The SSD backward's fp32 gradients against ``want`` at ``SSD_TOL``,
+    each divided by its max |want|, in one line.  Returns the max abs
+    error (unscaled)."""
+    errs, shares = [], []
+    for what, g, w in zip(SSD_GRADS, got, want):
+        scale = float(w.float().abs().max()) + 1e-9
+        errs.append(_check(f"{name} {what}", g, w, SSD_TOL, SSD_TOL, scale,
+                           quiet=True))
+        shares.append(f"{what} {errs[-1] / scale:.1e}")
+    log(f"  {name}: max err / max |ref| " + ", ".join(shares)
+        + f" (rtol = atol {SSD_TOL})")
+    return max(errs)
+
+
+def grads_ssd(gen):
+    """The SSD backward against autograd of the plain version at mamba2's
+    heads (B4 H48 P64 N128), bf16 and fp32 x / B / C, B / C slices of one
+    projection: S 1000 and 1024 (the training length) and the chunk edges
+    1, 63, 64, 65, with and without h0 and a gradient of h_final; the fp32
+    cases at S 1000 also against the plain version in fp64."""
+    from repro_torch.kernels import ssd_scan as ssd
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        for s, with_h0, with_dh in [
+                (1000, True, True), (1000, False, False), (1024, True, False),
+                (1024, False, True)] + [(s, h0, h0) for s in (1, 63, 64, 65)
+                                        for h0 in (True, False)]:
+            args = ssd_inputs(gen, 4, s, 48, 64, 128, dtype, with_h0)
+            dy = _randn(gen, 4, s, 48, 64, dtype=torch.float32)
+            dh = (_randn(gen, 4, 48, 128, 64, dtype=torch.float32)
+                  if with_dh else None)
+            got = ssd.ssd_scan_bwd_cuda(*args, dy, dh)
+            want = plain_ssd_grads(args, dy, dh)
+            torch.cuda.synchronize()
+            name = (f"ssd backward {tag} B4 S{s} H48 P64 N128 h0={with_h0} "
+                    f"dh_final={with_dh}")
+            check_ssd_grads(name, got, want)
+            if dtype == torch.float32 and s == 1000:
+                exact = plain_ssd_grads(args, dy, dh, torch.float64)
+                check_ssd_grads(name + " vs fp64", got, exact)
+                log("    the fp32 plain version against fp64: max err / max "
+                    "|fp64| " + ", ".join(
+                        f"{what} {float((p_ - e).abs().max() / e.abs().max()):.1e}"
+                        for what, p_, e in zip(SSD_GRADS, want, exact)))
+                del exact
+            del args, dy, dh, got, want
+
+
 def times_flash_train(gen, records):
     """The forward and backward kernels at recurrentgemma-2b's training
     shape (bf16, B4 S1024), each first held against its plain version on
@@ -1766,6 +1851,104 @@ def times_rglru_train(gen, records):
     del sets
 
 
+def times_ssd_train(gen, records):
+    """The SSD scan forward and its backward at mamba2-780m's training
+    shape (bf16 x / B / C, fp32 dt: B4 S1024 H48 P64 N128, no h0), each
+    first held against its plain version on one input set (the backward
+    also against a second call, bitwise), then timed beside the plain
+    versions' (autograd of ``ssd_scan_torch``).  No PyTorch call computes
+    the scan, so there is no library time."""
+    from repro_torch.kernels import ssd_scan as ssd
+    b, s, h, p, n = TRAIN_BATCH, TRAIN_SEQ, 48, 64, 128
+    dtype, item = torch.bfloat16, 2
+    x_el, bc_el, dt_el = b * s * h * p, 2 * b * s * n, b * s * h
+
+    def make():
+        return (*ssd_inputs(gen, b, s, h, p, n, dtype, False)[:5],
+                _randn(gen, b, s, h, p, dtype=torch.float32))
+
+    # forward: x, B, C, dt and a read, y and h_final written; backward: the
+    # same inputs and the fp32 dy read, dx, dB, dC (bf16), ddt, da written
+    fwd_bytes = (item * (x_el + bc_el) + 4 * (dt_el + h)
+                 + 4 * (x_el + b * h * n * p))
+    bwd_bytes = 2 * item * (x_el + bc_el) + 2 * 4 * (dt_el + h) + 4 * x_el
+    # the chunked products (chunks of L = 64), as the forward's bound counts
+    # them: forward the gram (2 L N a position, shared by the heads) and per
+    # head M' x (2 L P), C H and the state update (2 N P each); backward
+    # the gram, per head dM and M^T dy (2 L P each), dG B and dG^T C (2 L N
+    # each), and six products of 2 N P (C H, B dH, dy H^T, u dH^T, C^T dy,
+    # the recomputed state update)
+    fwd_ops = 2 * b * s * (64 * n + h * (64 * p + 2 * n * p))
+    bwd_ops = 2 * b * s * (64 * n + h * (2 * 64 * p + 2 * 64 * n
+                                         + 6 * n * p))
+    sets = copies(make, bwd_bytes)
+    shape = f"bf16 x/B/C, fp32 dt B{b} S{s} H{h} P{p} N{n}, no h0"
+
+    def kernel_fwd(x, dt, a, bm, cm, dy):
+        return ssd.ssd_scan_cuda(x, dt, a, bm, cm)
+
+    def kernel_bwd(x, dt, a, bm, cm, dy):
+        return ssd.ssd_scan_bwd_cuda(x, dt, a, bm, cm, None, dy, None)
+
+    def kernel_both(x, dt, a, bm, cm, dy):
+        ssd.ssd_scan_cuda(x, dt, a, bm, cm)
+        return ssd.ssd_scan_bwd_cuda(x, dt, a, bm, cm, None, dy, None)
+
+    def plain_fwd(x, dt, a, bm, cm, dy):
+        return ssd.ssd_scan_torch(x, dt, a, bm, cm)
+
+    def plain_both(x, dt, a, bm, cm, dy):
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, bm, cm)]
+        y, _ = ssd.ssd_scan_torch(*leaves)
+        return torch.autograd.grad(y, leaves, dy)
+
+    def backward_only(y, leaves, dy):
+        return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    first = sets[0]
+    fwd_err = check_scaled(f"ssd_scan forward at the training shape "
+                           f"[{shape}] y", kernel_fwd(*first)[0],
+                           plain_fwd(*first)[0], SSD_TOL)
+    got = kernel_bwd(*first)
+    bwd_err = check_ssd_grads(f"ssd backward at the training shape [{shape}]",
+                              got, plain_ssd_grads((*first[:5], None),
+                                                   first[5], None))
+    if not all(torch.equal(g, a) for g, a in zip(got, kernel_bwd(*first))):
+        raise AssertionError("two calls of the SSD backward on the same "
+                             "inputs gave different gradients")
+    log("  ssd backward at the training shape: a second call on the same "
+        "inputs bitwise equal (dx, ddt, da, dB, dC, dh0)")
+    del got
+
+    ms_fwd = time_ms(kernel_fwd, sets, 20)
+    ms_bwd = time_ms(kernel_bwd, sets, 10)
+    ms_both = time_ms(kernel_both, sets, 10)
+    plain_fwd_ms = time_ms(plain_fwd, sets, 3)
+    plain_both_ms = time_ms(plain_both, sets, 3)
+    graphs = []
+    for st in sets:
+        leaves = [t.detach().requires_grad_(True) for t in st[:5]]
+        graphs.append((ssd.ssd_scan_torch(*leaves)[0], leaves, st[5]))
+    plain_bwd_ms = time_ms(backward_only, graphs, 3)
+    del graphs
+    fwd_bound = bound_ms(fwd_bytes, fwd_ops, dtype)
+    bwd_bound = bound_ms(bwd_bytes, bwd_ops, dtype)
+    records["ssd_scan", SSM_PATH] = record(
+        "ssd_scan", SSM_PATH, shape, fwd_err, ms_fwd, plain_fwd_ms,
+        fwd_bound, None)
+    records["ssd_scan_backward", SSM_PATH] = record(
+        "ssd_scan_backward", SSM_PATH, shape, bwd_err, ms_bwd, plain_bwd_ms,
+        bwd_bound, None, fwd_bwd_ms=ms_both, plain_fwd_bwd_ms=plain_both_ms)
+    log(f"  ssd at the training shape [{shape}]: forward {ms_fwd:.4f} ms "
+        f"(bound {fwd_bound[0]:.4f}, {fwd_bound[1]}; plain "
+        f"{plain_fwd_ms:.4f} ms), backward {ms_bwd:.4f} ms (bound "
+        f"{bwd_bound[0]:.4f}, {bwd_bound[1]}: {bwd_bytes:.3g} bytes, "
+        f"{bwd_ops:.3g} operations); forward + backward: kernels "
+        f"{ms_both:.4f} ms, plain {plain_both_ms:.4f} ms; backward alone: "
+        f"plain {plain_bwd_ms:.4f} ms")
+    del sets
+
+
 def train_counters() -> dict:
     """name -> (module, counter attribute) of every kernel a training step
     may launch, and of those it must not."""
@@ -1776,7 +1959,8 @@ def train_counters() -> dict:
             "rglru_scan": (mods["rglru_scan"], "launches"),
             "rglru_scan_backward": (mods["rglru_scan"], "bwd_launches"),
             "decode_attention": (mods["decode_attention"], "launches"),
-            "ssd_scan": (mods["ssd_scan"], "launches")}
+            "ssd_scan": (mods["ssd_scan"], "launches"),
+            "ssd_scan_backward": (mods["ssd_scan"], "bwd_launches")}
 
 
 def read_counts(names) -> dict:
@@ -1785,39 +1969,45 @@ def read_counts(names) -> dict:
 
 def expected_train_launches(cfg, steps: int) -> dict:
     """Per step: each attention layer's flash forward twice (the forward
-    and its recompute under remat) and its backward once; each RG-LRU
-    layer's scan twice forward and once backward, the backward one more
-    launch of the same kernel."""
+    and its recompute under remat) and its backward once; each SSM layer's
+    SSD scan twice and its backward kernel once; each RG-LRU layer's scan
+    twice forward and once backward, the backward one more launch of the
+    same kernel."""
     kinds = cfg.layer_types()
     n_attn_layers, n_rglru = n_attn(cfg), kinds.count("rglru")
+    n_ssm = kinds.count("ssm")
     return {"flash_attention": 2 * n_attn_layers * steps,
             "flash_attention_backward": n_attn_layers * steps,
             "rglru_scan": 3 * n_rglru * steps,
             "rglru_scan_backward": n_rglru * steps,
-            "decode_attention": 0, "ssd_scan": 0}
+            "decode_attention": 0, "ssd_scan": 2 * n_ssm * steps,
+            "ssd_scan_backward": n_ssm * steps}
 
 
-def train_parity(beside):
-    """fp32, recurrentgemma-2b at full width, 3 layers (one (rglru, rglru,
-    attn) unit), one 2100-token sequence so that the 2048-token window
-    binds: the card (kernels) against the same weights on the CPU (plain
-    versions): the loss, every parameter's gradient, the parameters after
-    one AdamW step; then a checkpoint of the card's model, read back
-    through the bridge.  The CPU's step runs in a thread of its own; the
-    card's step, ``beside()`` (untimed card work) and the checkpoint's
-    round trip run meanwhile."""
+def train_parity(arch, beside):
+    """fp32, ``arch`` at full width and ``PARITY_SHAPE``'s depth over one
+    sequence of its length (recurrentgemma-2b: 3 layers, one (rglru, rglru,
+    attn) unit, 2100 tokens so that the 2048-token window binds;
+    mamba2-780m: 3 layers, 1100 tokens, no multiple of the SSD chunk): the
+    card (kernels) against the same weights on the CPU (plain versions):
+    the loss, every parameter's gradient, the parameters after one AdamW
+    step; then a checkpoint of the card's model, read back through the
+    bridge.  The CPU's step runs in a thread of its own; the card's step,
+    ``beside()`` (untimed card work) and the checkpoint's round trip run
+    meanwhile."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.training.optim import (OptimConfig, adamw_init,
                                             adamw_update)
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=3)
+    n_layers, seq = PARITY_SHAPE[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     card = Model(cfg, dtype=torch.float32, device="cuda")
     card.init(torch.Generator(device="cuda").manual_seed(0))
     cpu = Model(cfg, dtype=torch.float32, device="cpu")
     cpu.load_state_dict(card.state_dict())  # copied across devices
-    toks = torch.from_numpy(np.random.default_rng(2100).integers(
-        0, cfg.vocab_size, (1, 2100)))
+    toks = torch.from_numpy(np.random.default_rng(seq).integers(
+        0, cfg.vocab_size, (1, seq)))
     out = {}
 
     def step(model):
@@ -1907,21 +2097,22 @@ def checkpoint_round_trip(model):
                                  "back")
 
 
-def train_full(records):
-    """bf16, recurrentgemma-2b at full width and depth through the training
+def train_full(arch, records):
+    """bf16, ``arch`` at full width and depth through the training
     launcher: every loss and grad norm finite, the last loss below the
-    first, and the exact kernel launches of the path."""
+    first, and the exact kernel launches of the path, which become the
+    ``launches`` of its records."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launcher
     names = train_counters()
     for module, attr in names.values():
         setattr(module, attr, 0)
-    rep = launcher.train(TRAIN_ARCH, "full", steps=TRAIN_STEPS,
+    rep = launcher.train(arch, "full", steps=TRAIN_STEPS,
                          batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=1e-3,
                          device="cuda",
                          log_fn=lambda line: log("    " + line))
     counts = read_counts(names)
-    want = expected_train_launches(get_config(TRAIN_ARCH), TRAIN_STEPS)
+    want = expected_train_launches(get_config(arch), TRAIN_STEPS)
     log(f"    launches {counts}, expected {want}")
     if counts != want:
         raise AssertionError("training did not go through the kernels as "
@@ -1938,9 +2129,9 @@ def train_full(records):
     log(f"    {rep['n_params'] / 1e9:.3f} B parameters, median step "
         f"{ms:.1f} ms ({TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s) "
         f"over steps 2-{TRAIN_STEPS}, peak {rep['peak_gib']:.2f} GiB")
-    for name in ("flash_attention", "flash_attention_backward",
-                 "rglru_scan", "rglru_scan_backward"):
-        records[name, TRAIN_PATH]["launches"] = counts[name]
+    for (name, path), r in records.items():
+        if path == f"train:{arch}":
+            r["launches"] = counts[name]
     return rep["model"]
 
 
@@ -1971,7 +2162,8 @@ def profile_train_step(model):
     if "top_kernels" not in rep:
         raise AssertionError("the profiler saw no device time in the step")
     families = {"flash backward": r"flash_bwd_", "flash forward":
-                r"flash_bf16", "RG-LRU scan": r"rglru", "matmuls":
+                r"flash_bf16", "SSD backward": r"ssd_bwd", "SSD forward":
+                r"ssd_bf16|ssd_kernel", "RG-LRU scan": r"rglru", "matmuls":
                 r"gemm|nvjet|xmma|cutlass|Gemm"}
     by_family = dict.fromkeys([*families, "other"], 0.0)
     for e in prof.events():
@@ -1997,8 +2189,8 @@ def profile_train_step(model):
 
 
 def phase_train(records: dict):
-    log(f"[8] train: {TRAIN_ARCH}, the backward kernels, fp32 parity, "
-        f"bf16 at full width and depth")
+    log(f"[8] train: {TRAIN_ARCH} and {SSM_ARCH}, the backward kernels, "
+        f"fp32 parity, bf16 at full width and depth")
     gen = torch.Generator(device="cuda").manual_seed(8)
 
     def backward_checks():
@@ -2007,13 +2199,24 @@ def phase_train(records: dict):
         timed(grads_flash, gen)
         timed(grads_rglru, gen)
 
-    log(f"  fp32 parity, {TRAIN_ARCH} at full width, 3 layers, 2100 tokens:")
-    timed(train_parity, backward_checks)
+    def ssd_checks():
+        log("  the SSD backward vs autograd of the plain version (beside "
+            "the CPU's parity step):")
+        timed(grads_ssd, gen)
+
+    for arch, beside in ((TRAIN_ARCH, backward_checks),
+                         (SSM_ARCH, ssd_checks)):
+        n_layers, seq = PARITY_SHAPE[arch]
+        log(f"  fp32 parity, {arch} at full width, {n_layers} layers, "
+            f"{seq} tokens:")
+        timed(train_parity, arch, beside)
     timed(times_flash_train, gen, records)
     timed(times_rglru_train, gen, records)
-    log(f"  bf16, full width and depth, {TRAIN_STEPS} steps of "
-        f"B{TRAIN_BATCH} x S{TRAIN_SEQ}:")
-    timed(profile_train_step, timed(train_full, records))
+    timed(times_ssd_train, gen, records)
+    for arch in (TRAIN_ARCH, SSM_ARCH):
+        log(f"  {arch} bf16, full width and depth, {TRAIN_STEPS} steps of "
+            f"B{TRAIN_BATCH} x S{TRAIN_SEQ}:")
+        timed(profile_train_step, timed(train_full, arch, records))
 
 
 def main() -> int:

@@ -4,7 +4,8 @@ Python and numpy; imports rewritten to ``repro_torch``), plus
 ``h100intf``: interference measured there."""
 from repro_torch.core.elastic import ElasticPartitioning
 from repro_torch.core.gpulet import Assignment, GpuLet, GpuState, fresh_cluster
-from repro_torch.core.hardware import (H100_SXM, PAPER_CLUSTER, RTX_2080TI,
+from repro_torch.core.h100lets import H100_SXM
+from repro_torch.core.hardware import (PAPER_CLUSTER, RTX_2080TI,
                                        AcceleratorSpec, ClusterSpec)
 from repro_torch.core.ideal import IdealScheduler
 from repro_torch.core.interference import InterferenceModel, fit_default_model

@@ -37,10 +37,19 @@ import json
 from bisect import bisect_left
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.hardware import AcceleratorSpec
 from repro_torch.core.latency import (PARTITION_SIZES, SPLIT_PAIRS,
                                       LatencyProvider)
 from repro_torch.core.profiles import ModelProfile
 
+# The port's card: NVIDIA H100 SXM, under the name that
+# torch.cuda.get_device_name gives it (and nvidia-smi, in the records of
+# launch/profile_partitions.py).  Peaks from NVIDIA's data sheet, dense
+# rates: 989 TFLOP/s bf16, 3.35 TB/s HBM3, 80 GB, NVLink 900 GB/s (450 each
+# way).
+H100_SXM = AcceleratorSpec(
+    name="NVIDIA H100 80GB HBM3", peak_tflops=989.0, hbm_gbs=3350.0,
+    hbm_gb=80.0, ici_gbs=450.0)
 #: decode batches of the measured grid (the paper's range, up to 32)
 LBP_BATCHES: tuple[int, ...] = (1, 2, 4, 8, 16, 32)
 #: the calibration batch of the SLO convention

@@ -50,12 +50,3 @@ class ClusterSpec:
 
 
 PAPER_CLUSTER = ClusterSpec(accelerator=RTX_2080TI, n_devices=4)
-
-# The port's card: NVIDIA H100 SXM, under the name that
-# torch.cuda.get_device_name gives it (and nvidia-smi, in the records of
-# launch/profile_partitions.py).  Peaks from NVIDIA's data sheet, dense
-# rates: 989 TFLOP/s bf16, 3.35 TB/s HBM3, 80 GB, NVLink 900 GB/s (450 each
-# way).
-H100_SXM = AcceleratorSpec(
-    name="NVIDIA H100 80GB HBM3", peak_tflops=989.0, hbm_gbs=3350.0,
-    hbm_gb=80.0, ici_gbs=450.0)

@@ -6,14 +6,14 @@ tensor launches the hand-written kernel, and a build or launch failure
 raises (no fallback).  Any other device raises.
 
 Gradients: when grad mode is on and an input requires grad, a CUDA
-tensor's ``flash_attention`` and ``rglru_scan`` go through a
-``torch.autograd.Function`` whose backward is a kernel as well
-(``FlashAttention``, ``RGLRUScan``); ``rglru_scan`` takes its Function on
-the CPU too (the same reverse scan through the plain version), and a CPU
-``flash_attention`` or ``ssd_scan`` is differentiated by autograd through
-its plain version.  The SSD scan has no backward kernel yet, so
-``ssd_scan`` on a CUDA tensor that requires grad raises.  Without grad the
-route is the one above.
+tensor's ``flash_attention``, ``ssd_scan`` and ``rglru_scan`` go through
+a ``torch.autograd.Function`` whose backward is a kernel as well
+(``FlashAttention``, ``SSDScan``, ``RGLRUScan``).  ``ssd_scan`` and
+``rglru_scan`` take their Function on the CPU too (the backward kernel's
+algorithm through the plain versions: ``ssd_scan_bwd_chunks``, the
+reverse scan), and a CPU ``flash_attention`` is differentiated by
+autograd through its plain version.  Without grad the route is the one
+above.
 """
 from __future__ import annotations
 
@@ -63,15 +63,15 @@ def ssd_scan(xh, dt, a, bmat, cmat, h0=None):
     """xh: (B, S, H, P); dt: (B, S, H); a: (H,); bmat/cmat: (B, S, N);
     h0: (B, H, N, P) or None.
 
-    Returns (y (B, S, H, P), h_final (B, H, N, P)), both fp32.  Unlike the
-    JAX entry it takes and returns the state, and any S works."""
-    if _route(xh, "ssd_scan") == "cpu":
-        return _ssd.ssd_scan_torch(xh, dt, a, bmat, cmat, h0)
+    Returns (y (B, S, H, P), h_final (B, H, N, P)), both fp32, except on
+    the CPU, where fp64 inputs give fp64 outputs (the exact reference of
+    the checks).  Unlike the JAX entry it takes and returns the state, and
+    any S works."""
+    route = _route(xh, "ssd_scan")
     if _wants_grad(xh, dt, a, bmat, cmat, h0):
-        raise NotImplementedError(
-            "ssd_scan: the SSD scan has no backward kernel on the card yet "
-            "(ROADMAP A.6.1, the SSD scan backward and mamba2-780m training "
-            "on the card); train an SSM layer on the CPU")
+        return _ssd.SSDScan.apply(xh, dt, a, bmat, cmat, h0)
+    if route == "cpu":
+        return _ssd.ssd_scan_torch(xh, dt, a, bmat, cmat, h0)
     return _ssd.ssd_scan_cuda(xh, dt, a, bmat, cmat, h0)
 
 

@@ -53,6 +53,28 @@ The route is chosen by dtype (not a fallback: both are kernels):
 Both loop over chunks of 64 positions inside a block (the loop replaces
 the TPU's sequential chunk axis: CUDA blocks run in no order) and
 recompute the gram C B^T for every head (it is shared across heads).
+
+The backward (``csrc/ssd_scan_bwd.cu``; the TPU kernel has none, the JAX
+package differentiates its jnp ``ssd_chunked``) computes dx, ddt, da, dB,
+dC and dh0 by the equations of ``ssd_scan_bwd_chunks``, its CPU
+emulation.  What bounds it at mamba2's training shape (B 4, S 1024, H 48,
+bf16 x / B / C, fp32 dy): bytes, about 106 MB (x, dt, B, C and dy read,
+the gradients written), 0.032 ms at 3.35 TB/s; its chunked products are
+2.9e10 operations, 0.029 ms on the tensor cores.  The first kernel is
+simple: one block of 256 threads per (batch row, head), every product in
+fp32 on the CUDA cores for both dtypes.  It recomputes the chunk-start
+states in a forward sweep instead of having the forward save them: the
+forward kernel keeps its state in registers and writes only h_final, and
+the states are 101 MB fp32 a layer at the training shape (B H chunks N P
+x 4 bytes), held only for the call in the kernel's scratch (written and
+read once, about 0.06 ms of traffic) rather than from the forward to the
+backward.  Then it walks the chunks in reverse with the fp32 carry dH in
+shared memory.  dB and dC sum over the heads and da over the batch rows:
+each block writes fp32 partials (201 MB for dB and dC at the training
+shape) and a second kernel sums them in a fixed order, so two calls give
+bitwise-equal gradients (no float atomics).  ``SSDScan`` pairs the
+forward and backward for autograd; ``bwd_launches`` counts backward
+calls on the card.
 """
 from __future__ import annotations
 
@@ -64,6 +86,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 launches = 0  # kernel launches, one a call (plain-version calls not counted)
+bwd_launches = 0  # backward passes on the card (``ssd_scan_bwd_cuda``)
 
 NEG_INF = -1e30
 CHUNK = 64            # the plain version's chunk (the kernel has its own)
@@ -74,30 +97,36 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
              [ctypes.c_int64] * 7 + [ctypes.c_void_p])
 
 
+def _compute_dtype(xh) -> torch.dtype:
+    """fp32, or fp64 for fp64 inputs (the exact reference of the checks)."""
+    return torch.float64 if xh.dtype == torch.float64 else torch.float32
+
+
 def ssd_scan_torch(xh, dt, a, bmat, cmat, h0=None):
     """Plain version, the chunked form of the JAX ``ssd_chunked``.
 
     xh: (B, S, H, P); dt: (B, S, H) > 0; a: (H,) < 0; bmat, cmat: (B, S, N);
     h0: (B, H, N, P) or None.  Returns y (B, S, H, P) and h_final
-    (B, H, N, P), both fp32.
+    (B, H, N, P), both fp32 (fp64 for fp64 inputs).
     """
     b, s, h, p = xh.shape
     n = bmat.shape[-1]
+    ft = _compute_dtype(xh)
     pad = -s % CHUNK
     # positions past S get dt = 0: decay 1 and no update, a no-op
-    xf = F.pad(xh.float(), (0, 0, 0, 0, 0, pad))
-    dtf = F.pad(dt.float(), (0, 0, 0, pad))
-    bf = F.pad(bmat.float(), (0, 0, 0, pad))
-    cf = F.pad(cmat.float(), (0, 0, 0, pad))
+    xf = F.pad(xh.to(ft), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.to(ft), (0, 0, 0, pad))
+    bf = F.pad(bmat.to(ft), (0, 0, 0, pad))
+    cf = F.pad(cmat.to(ft), (0, 0, 0, pad))
     nc = (s + pad) // CHUNK
     xdt = (xf * dtf[..., None]).view(b, nc, CHUNK, h, p)
     bc = bf.view(b, nc, CHUNK, n)
     cc = cf.view(b, nc, CHUNK, n)
-    cums = torch.cumsum((dtf * a.float()).view(b, nc, CHUNK, h), dim=2)
+    cums = torch.cumsum((dtf * a.to(ft)).view(b, nc, CHUNK, h), dim=2)
     lower = torch.ones(CHUNK, CHUNK, dtype=torch.bool,
                        device=xh.device).tril()[None, :, :, None]
-    state = (torch.zeros(b, h, n, p, device=xh.device) if h0 is None
-             else h0.float())
+    state = (torch.zeros(b, h, n, p, device=xh.device, dtype=ft)
+             if h0 is None else h0.to(ft))
     ys = []
     for c in range(nc):
         cum = cums[:, c]                                   # (B, L, H)
@@ -177,3 +206,200 @@ def ssd_scan_cuda(xh, dt, a, bmat, cmat, h0=None):
     _build.check(lib, err, "ssd_scan")
     launches += 1
     return y, h_final
+
+
+# -------------------------------------------------------------- backward --
+
+
+def ssd_scan_bwd_chunks(xh, dt, a, bmat, cmat, h0, dy, dh_final):
+    """Gradients of ``y, h_final = ssd_scan(xh, dt, a, bmat, cmat, h0)``
+    by the backward kernel's own algorithm (``csrc/ssd_scan_bwd.cu``),
+    vectorised over batch and head, looping over chunks only.
+
+    ``dy`` (B, S, H, P) and ``dh_final`` (B, H, N, P) are the incoming
+    gradients; either may be None (zero), as may ``h0``.  Returns dx
+    (B, S, H, P), ddt (B, S, H), da (H,), dB, dC (B, S, N) and dh0
+    (B, H, N, P), all fp32 (fp64 for fp64 inputs).
+
+    First the chunk-start states H_c, forward from h0 (the kernel's first
+    sweep); then, over the chunks in reverse with the carry dH' (the
+    gradient of the chunk's end state, ``dh_final`` at the last chunk),
+    per (batch row, head) and chunk, in the forward's notation (cum the
+    inclusive cumulative sum of dt a in the chunk, tot its last entry,
+    u = dt x, G = C B^T, M_ij = [i >= j] exp(cum_i - cum_j) G_ij):
+
+        dM_ij = [i >= j] dy_i . u_j          dG = dM o exp(cum_i - cum_j)
+        du_j  = sum_i M_ij dy_i + exp(tot - cum_j) dH'^T B_j
+        dC_i  = sum_j dG_ij B_j + exp(cum_i) H dy_i
+        dB_j  = sum_i dG_ij C_i + exp(tot - cum_j) dH' u_j
+        dcum  = rowsum(E) - colsum(E) + exp(cum_i) dy_i . (H^T C_i)
+                - exp(tot - cum_j) u_j . (dH'^T B_j),   E = dM o M,
+                plus <dH', H'> at the chunk's last position
+        ds    = the reverse cumulative sum of dcum in the chunk
+        ddt   = a ds + x . du,  dx = dt du,  da = sum dt ds
+        dH   <- exp(tot) dH' + sum_i exp(cum_i) C_i dy_i^T
+
+    with <dH', H'> = exp(tot) <dH', H> + the sum of the u . (dH'^T B)
+    terms, so the end state is not needed.  Positions past S count as
+    dt = 0 and zero inputs, as in the forward, and their gradients are
+    dropped.
+    """
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    ft = _compute_dtype(xh)
+    dev = xh.device
+    pad = -s % CHUNK
+    nc = (s + pad) // CHUNK
+    x = F.pad(xh.to(ft), (0, 0, 0, 0, 0, pad)).view(b, nc, CHUNK, h, p)
+    dtf = F.pad(dt.to(ft), (0, 0, 0, pad)).view(b, nc, CHUNK, h)
+    bc = F.pad(bmat.to(ft), (0, 0, 0, pad)).view(b, nc, CHUNK, n)
+    cc = F.pad(cmat.to(ft), (0, 0, 0, pad)).view(b, nc, CHUNK, n)
+    g = (torch.zeros_like(x) if dy is None else
+         F.pad(dy.to(ft), (0, 0, 0, 0, 0, pad)).view(b, nc, CHUNK, h, p))
+    af = a.to(ft)
+    u = x * dtf[..., None]
+    cums = torch.cumsum(dtf * af, dim=2)                 # (B, nc, L, H)
+    lower = torch.ones(CHUNK, CHUNK, dtype=torch.bool,
+                       device=dev).tril()[None, :, :, None]
+
+    state = (torch.zeros(b, h, n, p, device=dev, dtype=ft) if h0 is None
+             else h0.to(ft))
+    starts = []
+    for c in range(nc):
+        starts.append(state)
+        cum = cums[:, c]
+        tot = cum[:, -1]
+        w = (tot[:, None] - cum).exp()
+        state = tot.exp()[:, :, None, None] * state + torch.einsum(
+            "bjn,bjh,bjhp->bhnp", bc[:, c], w, u[:, c])
+
+    dh = (torch.zeros(b, h, n, p, device=dev, dtype=ft) if dh_final is None
+          else dh_final.to(ft))
+    da = torch.zeros(h, device=dev, dtype=ft)
+    dxs, ddts, dbs, dcs = [], [], [], []
+    for c in reversed(range(nc)):
+        cum = cums[:, c]                                 # (B, L, H)
+        tot = cum[:, -1]                                 # (B, H)
+        es = cum.exp()
+        w = (tot[:, None] - cum).exp()
+        hs, bb, cb = starts[c], bc[:, c], cc[:, c]
+        uc, gc = u[:, c], g[:, c]
+        dec = (cum[:, :, None] - cum[:, None]).masked_fill(
+            ~lower, NEG_INF).exp()                       # (B, L, L, H)
+        m = dec * torch.einsum("bin,bjn->bij", cb, bb)[..., None]
+        dm = torch.einsum("bihp,bjhp->bijh", gc, uc) * lower
+        dg = dm * dec
+        e = dm * m
+        bd = torch.einsum("bjn,bhnp->bjhp", bb, dh)      # dH'^T B_j
+        du = torch.einsum("bijh,bihp->bjhp", m, gc) + w[..., None] * bd
+        t1 = es * (gc * torch.einsum("bin,bhnp->bihp", cb, hs)).sum(-1)
+        t2 = w * (bd * uc).sum(-1)
+        dcum = e.sum(2) - e.sum(1) + t1 - t2
+        dcum[:, -1] += tot.exp() * (dh * hs).sum((-2, -1)) + t2.sum(1)
+        ds = dcum.flip(1).cumsum(1).flip(1)
+        ddts.append(af * ds + (x[:, c] * du).sum(-1))
+        da = da + (dtf[:, c] * ds).sum((0, 1))
+        dxs.append(dtf[:, c][..., None] * du)
+        dcs.append(torch.einsum("bijh,bjn->bin", dg, bb)
+                   + torch.einsum("bih,bihp,bhnp->bin", es, gc, hs))
+        dbs.append(torch.einsum("bijh,bin->bjn", dg, cb)
+                   + torch.einsum("bjh,bjhp,bhnp->bjn", w, uc, dh))
+        dh = tot.exp()[:, :, None, None] * dh + torch.einsum(
+            "bin,bih,bihp->bhnp", cb, es, gc)
+
+    def seq(chunks):
+        return torch.cat(chunks[::-1], dim=1)[:, :s]
+
+    return seq(dxs), seq(ddts), da, seq(dbs), seq(dcs), dh
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 +
+                 [ctypes.c_int64] * 7 + [ctypes.c_void_p])
+
+
+def bwd_scratch_sizes(b: int, s: int, h: int, p: int, n: int) -> dict:
+    """fp32 entries of the backward kernel's scratch: the chunk-start
+    states it recomputes (B, H, chunks, N, P), the per-head partials of dB
+    and dC (H, B, S, N each) and of da (B, H)."""
+    n_chunks = -(-s // CHUNK)
+    return {"states": b * h * n_chunks * n * p, "db": h * b * s * n,
+            "dc": h * b * s * n, "da": b * h}
+
+
+def ssd_scan_bwd_cuda(xh, dt, a, bmat, cmat, h0, dy, dh_final):
+    """Launch the backward kernel (``ssd_bwd_kernel``, then
+    ``ssd_bwd_sum`` over the heads' partials).  Same contract as
+    ``ssd_scan_bwd_chunks``: every gradient fp32."""
+    global bwd_launches
+    _check(xh, dt, a, bmat, cmat, h0)
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    for name, t, shape in (("dy", dy, (b, s, h, p)),
+                           ("dh_final", dh_final, (b, h, n, p))):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32
+                              or not t.is_contiguous()
+                              or t.device != xh.device):
+            raise ValueError(f"ssd_scan_bwd_cuda: {name} must be a "
+                             f"contiguous float32 {shape} tensor on "
+                             f"{xh.device}")
+    lib = _build.library("ssd_scan_bwd", _BWD_ARGTYPES)
+    sizes = bwd_scratch_sizes(b, s, h, p, n)
+    with torch.cuda.device(xh.device):
+        f32 = dict(dtype=torch.float32, device=xh.device)
+        dx = torch.empty((b, s, h, p), **f32)
+        ddt = torch.empty((b, s, h), **f32)
+        da = torch.empty((h,), **f32)
+        db = torch.empty((b, s, n), **f32)
+        dc = torch.empty((b, s, n), **f32)
+        dh0 = torch.empty((b, h, n, p), **f32)
+        scratch = torch.empty(sum(sizes.values()), **f32)
+        ptr, at = {}, scratch.data_ptr()
+        for key, count in sizes.items():
+            ptr[key], at = at, at + 4 * count
+        err = lib.ssd_scan_bwd_launch(
+            xh.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+            cmat.data_ptr(), None if h0 is None else h0.data_ptr(),
+            None if dy is None else dy.data_ptr(),
+            None if dh_final is None else dh_final.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), dh0.data_ptr(), ptr["states"], ptr["db"],
+            ptr["dc"], ptr["da"], _DTYPES[xh.dtype], b, s, h, p, n,
+            *xh.stride()[:3], *bmat.stride()[:2], *cmat.stride()[:2],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "ssd_scan_bwd")
+    bwd_launches += 1
+    return dx, ddt, da, db, dc, dh0
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan with its backward kernel: on a CUDA tensor the forward
+    kernel, then ``ssd_scan_bwd_cuda``; on the CPU ``ssd_scan_torch``,
+    then ``ssd_scan_bwd_chunks``.  Saves the inputs only: the backward
+    recomputes the chunk-start states (in the kernel, into a scratch freed
+    with the call).  Each gradient comes back in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, a, bmat, cmat, h0):
+        ctx.set_materialize_grads(False)
+        cuda = xh.device.type == "cuda"
+        y, h_final = (ssd_scan_cuda if cuda else ssd_scan_torch)(
+            xh, dt, a, bmat, cmat, h0)
+        ctx.save_for_backward(xh, dt, a, bmat, cmat, h0)
+        ctx.cuda = cuda
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        xh, dt, a, bmat, cmat, h0 = ctx.saved_tensors
+        if ctx.cuda:
+            grads = ssd_scan_bwd_cuda(
+                xh, dt, a, bmat, cmat, h0,
+                None if dy is None else dy.float().contiguous(),
+                None if dh_final is None else dh_final.float().contiguous())
+        else:
+            grads = ssd_scan_bwd_chunks(xh, dt, a, bmat, cmat, h0, dy,
+                                        dh_final)
+        dx, ddt, da, db, dc, dh0 = grads
+        return (dx.to(xh.dtype), ddt.to(dt.dtype), da.to(a.dtype),
+                db.to(bmat.dtype), dc.to(cmat.dtype),
+                None if h0 is None else dh0.to(h0.dtype))

@@ -78,10 +78,10 @@ from repro_torch.core.gpulet import (GpuLet, GpuState,
                                      enumerate_gpu_partitionings)
 from repro_torch.core.h100intf import (corun_summary, fit_measured,
                                        load_corun, load_features)
-from repro_torch.core.h100lets import (MIX, SLO_BATCH, SYNTHETIC_MIX,
-                                       granted_sms, load_catalog,
-                                       synthetic_catalog)
-from repro_torch.core.hardware import H100_SXM, ClusterSpec
+from repro_torch.core.h100lets import (H100_SXM, MIX, SLO_BATCH,
+                                       SYNTHETIC_MIX, granted_sms,
+                                       load_catalog, synthetic_catalog)
+from repro_torch.core.hardware import ClusterSpec
 from repro_torch.core.ideal import IdealScheduler
 from repro_torch.core.sbp import SquishyBinPacking
 from repro_torch.core.scheduler_base import ScheduleResult

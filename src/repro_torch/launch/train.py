@@ -7,13 +7,14 @@ step for) and ``--device`` (the card unless ``cpu`` is asked for).  It
 prints each step's loss, grad norm, ms and tokens/s, and the peak device
 memory.
 
-On the card every attention and RG-LRU layer trains through the port's
-kernels and their backward passes.  An arch with SSM layers is refused
-there: the SSD scan has no backward kernel yet, and the port never trains
-on a plain version in its place.  The audio encoder is refused as in JAX.
+On the card every attention, SSM and RG-LRU layer trains through the
+port's kernels and their backward passes.  The audio encoder is refused as
+in JAX.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+      --preset full --steps 8 --batch 4 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
       --preset full --steps 8 --batch 4 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b \\
       --preset smoke --device cpu --steps 20 --batch 4 --seq 64
@@ -68,10 +69,6 @@ def refusal(cfg, device) -> str | None:
         return (f"{cfg.name} is an encoder: this entry point trains "
                 "next-token models, as the JAX package's does "
                 "(Model.loss_fn takes an encoder's per-frame labels)")
-    if torch.device(device).type == "cuda" and "ssm" in cfg.layer_types():
-        return (f"{cfg.name}: its ssm layers need the SSD scan's backward "
-                "kernel, which the card does not have yet (ROADMAP A.6.1); "
-                "train it with --device cpu")
     return None
 
 

@@ -10,8 +10,10 @@ Per head h with headdim P and state size N:
     y_t = C_t^T h_t + D * x_t
 A is a per-head negative scalar; B_t, C_t are shared across heads.  The
 sequence form runs the ``ssd_scan`` kernel (``kernels/ops.py``) where JAX
-calls ``ssd_chunked``; the one-token decode step is plain PyTorch, as in
-JAX.  States are dicts ``{"conv": (B, K-1, Di), "ssm": (B, H, N, P) fp32}``.
+calls ``ssd_chunked``, and trains through the kernel's backward
+(``SSDScan``: ``csrc/ssd_scan_bwd.cu`` on the card) where JAX
+differentiates ``ssd_chunked``; the one-token decode step is plain
+PyTorch, as in JAX.  States are dicts ``{"conv": (B, K-1, Di), "ssm": (B, H, N, P) fp32}``.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Typed span records for the engine event log.
+"""Typed span records for the engine event log (ISSUE 8 satellite).
 
 The engine's ``self.log`` (gated by ``EngineConfig.event_log``) used to
 hold untyped tuples — ``("batch", epoch, let, launch, done, model, n)``

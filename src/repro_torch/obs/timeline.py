@@ -1,6 +1,6 @@
 """Per-request lifecycle timeline: SoA columns for SLO forensics.
 
-A :class:`Timeline` rides on a :class:`~repro_torch.simulator.trace.RequestTrace`
+A :class:`Timeline` rides on a :class:`~repro.simulator.trace.RequestTrace`
 (``trace.obs``) and records, per request, *where its latency went*:
 dispatch, node assignment, network SLO burn, first/last batch launch,
 interference inflation, migration/failover replay burn, and a terminal
@@ -33,8 +33,7 @@ Column semantics (all float64 ms unless noted, NaN = never stamped):
 * ``resolve_ms`` — terminal stamp: completion time for completed rows,
   drop/shed/loss decision time otherwise.  Finite for every terminal
   (non-PENDING) row — the "every terminal status has a closing span"
-  invariant validated by ``repro.obs.validate`` in the JAX package (not
-  ported).
+  invariant validated by ``repro.obs.validate``.
 * ``cause`` (uint8) — why the request resolved; ``CAUSE_NAMES`` maps
   codes to the attribution taxonomy.
 
@@ -55,8 +54,8 @@ CAUSE_SHED = 4           # router overload valve
 CAUSE_LOST = 5           # no live node at dispatch time
 CAUSE_DROP_REPLAY = 6    # hopeless after failover/hand-back replay
 CAUSE_DROP_PARENT = 7    # DAG cascade: a parent stage failed
-CAUSE_DROP_RETRY = 8     # retry budget spent / deadline-aware shed
-CAUSE_BROWNOUT = 9       # brownout ladder denied admission
+CAUSE_DROP_RETRY = 8     # retry budget spent / deadline-aware shed (ISSUE 9)
+CAUSE_BROWNOUT = 9       # brownout ladder denied admission (ISSUE 9)
 
 CAUSE_NAMES = {
     CAUSE_NONE: "none",

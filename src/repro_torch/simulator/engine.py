@@ -32,7 +32,7 @@ whether the old partitioning keeps serving or launches pause).
 Struct-of-arrays hot path
 -------------------------
 Requests never exist as objects inside the engine.  The trace is a
-:class:`~repro_torch.simulator.trace.RequestTrace` (parallel numpy arrays); the
+:class:`~repro.simulator.trace.RequestTrace` (parallel numpy arrays); the
 engine works in a *local, arrival-sorted index space* over gathered copies
 of those arrays, and every per-gpu-let queue is an :class:`_IdxQueue` —
 a growable index ring over the arrays, not a deque of objects.  Batch
@@ -81,7 +81,7 @@ ARRIVAL, COMPLETE, APPLY, TICK, WAKE = 0, 1, 2, 3, 4
 _INF = float("inf")
 
 #: local-only status sentinel for rows revoked by a crash or migration
-#: hand-back.  Never written to the shared trace: the masked
+#: hand-back (ISSUE 9).  Never written to the shared trace: the masked
 #: scatter/sync paths skip these rows entirely, so the fabric's replay
 #: dispatch (which may create a *new* local row for the same global id,
 #: possibly on this same engine) stays the single writer.
@@ -129,7 +129,7 @@ class EngineConfig:
     #: granularity.  Smaller = new prefills join the pool sooner (better
     #: TTFT under load), larger = fewer simulator events.
     decode_quantum: int = 8
-    #: fault injection: sorted, non-overlapping ``(t0, t1)``
+    #: fault injection (ISSUE 9): sorted, non-overlapping ``(t0, t1)``
     #: node-down windows (``t1`` may be ``inf`` for a permanent crash).
     #: Inside a window no batch launches — walkers park and wake at the
     #: window end; the fabric's chaos loop evicts queued/in-flight work
@@ -282,7 +282,7 @@ class EventHeapEngine:
         self._targets: dict[int, list[list]] = {}
         self.unrouted: dict[int, _IdxQueue] = {}
         self.busy_ms: dict[tuple[int, int], float] = {}
-        #: compact event log of typed span records (repro_torch.obs.spans):
+        #: compact event log of typed span records (repro.obs.spans):
         #: BatchSpan / DecodeSpan / DropSpan / PreemptSpan / ApplySpan /
         #: TickSpan.  Records are NamedTuples with the historical field
         #: order, so positional consumers (e[0] == "batch") still work.
@@ -788,7 +788,7 @@ class EventHeapEngine:
         rt.pending = True
         self._push(rt.t, WAKE, self.epoch, rt.idx)
 
-    # ---- fault injection (chaos serving) -----------------------------------
+    # ---- fault injection (ISSUE 9 chaos serving) --------------------------
 
     def _outage_end(self, t: float) -> float | None:
         """End of the outage window covering ``t``, or None when up."""

@@ -144,7 +144,7 @@ class RequestTrace:
         self.tpot_slo_ms = None       # float64 per-output-token SLO
         self.first_token_ms = None    # float64 first-token stamp; NaN = none
         self.tokens_done = None       # int32 tokens generated so far
-        # observability timeline (repro_torch.obs.attach_timeline); None = off —
+        # observability timeline (repro.obs.attach_timeline); None = off —
         # every layer checks ``obs is not None`` once per batch/dispatch,
         # so the hot path pays a single branch when forensics are off.
         self.obs = None

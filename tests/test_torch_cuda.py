@@ -618,15 +618,126 @@ def test_rglru_backward_matches_autograd_of_plain_version(cuda, s, with_h0):
         torch.testing.assert_close(g, w, **SCAN)
 
 
-def test_ssd_scan_with_grad_raises_on_the_card(cuda):
-    """No backward kernel for the SSD scan yet: no plain version either."""
+def plain_ssd_grads(args, dy, dh_final, dtype=torch.float32):
+    """Autograd of ``ssd_scan_torch`` on ``args`` widened to ``dtype``
+    (exact for bf16 inputs): dx, ddt, da, dB, dC (and dh0 with h0).  The
+    CPU tests of the backward call it too (in fp64): it needs no card."""
+    leaves = [t.detach().to(dtype).requires_grad_(True)
+              for t in args if t is not None]
+    h0 = leaves[5] if len(leaves) == 6 else None
+    y, h_final = tssd.ssd_scan_torch(*leaves[:5], h0)
+    outs, grads = [y], [dy.to(dtype)]
+    if dh_final is not None:
+        outs.append(h_final)
+        grads.append(dh_final.to(dtype))
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+def check_ssd_backward(args, dy, dh_final):
+    """One call is one backward launch (no forward launch); every gradient
+    fp32 and within 1e-4 of its max |ref| of autograd of the plain
+    version."""
+    before = (tssd.launches, tssd.bwd_launches)
+    got = tssd.ssd_scan_bwd_cuda(*args, dy, dh_final)
+    want = plain_ssd_grads(args, dy, dh_final)
+    torch.cuda.synchronize()
+    assert (tssd.launches, tssd.bwd_launches) == (before[0], before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        scale = float(w.abs().max()) + 1e-9
+        torch.testing.assert_close(g / scale, w / scale, rtol=SSD_TOL,
+                                   atol=SSD_TOL)
+    return got
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("with_dh", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_matches_autograd(cuda, dtype, with_dh, with_h0, s):
+    """The SSD backward kernel at mamba2's head shape, S at the chunk
+    edges, with and without h0 and a gradient of h_final, B / C as slices
+    of one projection."""
+    rng = np.random.default_rng(100 + s)
+    args = ssd_args(cuda, rng, 2, s, 3, dtype, with_h0)
+    dy = on(cuda, rng, 2, s, 3, 64)
+    dh_final = on(cuda, rng, 2, 3, 128, 64) if with_dh else None
+    check_ssd_backward(args, dy, dh_final)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_with_unaligned_b_c_is_deterministic(cuda, dtype):
+    """B / C at an odd offset in a projection of odd width; a second call
+    on the same inputs gives bitwise-equal gradients (the heads' partials
+    are summed in order, no atomics)."""
+    rng = np.random.default_rng(8)
+    args = ssd_args(cuda, rng, 2, 200, 5, dtype, True,
+                    bc_width=2 * 128 + 3, bc_offset=3)
+    dy = on(cuda, rng, 2, 200, 5, 64)
+    dh_final = on(cuda, rng, 2, 5, 128, 64)
+    got = check_ssd_backward(args, dy, dh_final)
+    again = tssd.ssd_scan_bwd_cuda(*args, dy, dh_final)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_op_with_grad_runs_both_kernels(cuda, dtype):
+    """``ops.ssd_scan`` with grad on the card: one forward launch, one
+    backward launch, and each gradient in its input's dtype."""
     from repro_torch.kernels import ops
-    rng = np.random.default_rng(41)
-    xh, dt, a, bmat, cmat, _ = ssd_args(cuda, rng, 1, 64, 2,
-                                        torch.float32, False)
-    xh.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6.1"):
-        ops.ssd_scan(xh, dt, a, bmat, cmat)
+    rng = np.random.default_rng(43)
+    xh, dt, a, bmat, cmat, _ = ssd_args(cuda, rng, 1, 100, 2, dtype, False)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (xh, dt, a, bmat, cmat)]
+    before = (tssd.launches, tssd.bwd_launches)
+    y, h_final = ops.ssd_scan(*leaves)
+    assert (tssd.launches, tssd.bwd_launches) == (before[0] + 1, before[1])
+    dy = on(cuda, rng, 1, 100, 2, 64)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert (tssd.launches, tssd.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = plain_ssd_grads((xh, dt, a, bmat, cmat, None), dy, None)
+    for g, leaf, w in zip(grads, leaves, want):
+        assert g.dtype == leaf.dtype and g.shape == leaf.shape
+        scale = float(w.abs().max()) + 1e-9
+        tol = SSD_TOL if g.dtype == torch.float32 else 2.0 ** -8
+        torch.testing.assert_close(g.float() / scale, w / scale, rtol=tol,
+                                   atol=tol)
+
+
+def test_ssm_train_step_on_the_card_matches_the_cpu(cuda):
+    """mamba2's smoke config at the kernels' head shape (P 64, N 128) in
+    fp32: the loss and every gradient of one step on the card against the
+    same weights on the CPU, over 90 tokens (a ragged chunk), and the
+    step's exact kernel launches (each block's forward runs twice under
+    remat)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_smoke_config("mamba2-780m"),
+                              ssm_d_state=128, ssm_headdim=64)
+    card = Model(cfg, dtype=torch.float32, device=cuda)
+    card.init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    toks = np.random.default_rng(44).integers(0, cfg.vocab_size, (2, 90))
+    counts = (tssd.launches, tssd.bwd_launches)
+    losses = []
+    for model in (card, cpu):
+        model.requires_grad_(True)
+        loss = model.loss_fn({"tokens": torch.from_numpy(toks).to(
+            model.device)})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    # 2 SSM layers: forwards twice, backwards once
+    assert (tssd.launches - counts[0], tssd.bwd_launches - counts[1]) == \
+        (4, 2)
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        err = float((p.grad.cpu() - q.grad).abs().max())
+        assert err <= 1e-3 * float(q.grad.abs().max()), name
 
 
 def test_hybrid_train_step_on_the_card_matches_the_cpu(cuda):

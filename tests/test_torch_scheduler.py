@@ -338,7 +338,9 @@ COPIES = ("core/profiles.py", "core/latency.py", "core/gpulet.py",
           "core/interference.py", "core/scheduler_base.py", "core/elastic.py",
           "core/sbp.py", "core/selftuning.py", "core/ideal.py",
           "simulator/events.py", "simulator/metrics.py",
-          "serving/controller.py", "data/pipeline.py", "data/__init__.py")
+          "serving/controller.py", "data/pipeline.py", "data/__init__.py",
+          "simulator/engine.py", "simulator/trace.py", "obs/spans.py",
+          "obs/timeline.py", "core/hardware.py")
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\b", re.M)
 
 

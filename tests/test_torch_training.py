@@ -512,11 +512,13 @@ def get_port(arch):
     return get_smoke_config(arch)
 
 
-def test_launch_train_on_the_cpu(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-780m"])
+def test_launch_train_on_the_cpu(arch, tmp_path, capsys):
     """``python -m repro_torch.launch.train --device cpu --preset smoke``:
     a line per step with loss, grad norm, ms and tokens/s, the peak memory
-    line, and a checkpoint the bridge reads."""
-    assert ttrain.main(["--arch", "recurrentgemma-2b", "--preset", "smoke",
+    line, and a checkpoint the bridge reads (mamba2-780m: through the SSD
+    scan's ``SSDScan``)."""
+    assert ttrain.main(["--arch", arch, "--preset", "smoke",
                         "--device", "cpu", "--steps", "3", "--batch", "2",
                         "--seq", "16", "--checkpoint-dir",
                         str(tmp_path)]) == 0
@@ -529,19 +531,17 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
     assert any(line.startswith("peak device memory: not measured")
                for line in out)
     tree = load_jax_checkpoint(str(tmp_path), step=3)
-    params_from_jax(tree, get_port("recurrentgemma-2b"), device="cpu")
+    params_from_jax(tree, get_port(arch), device="cpu")
 
 
 def test_launch_train_refusals():
-    """The audio encoder is refused (as in JAX); on the card an SSM is
-    refused before anything is built (no SSD backward kernel); without a
-    card the card is refused, never replaced by the CPU."""
+    """The audio encoder is refused (as in JAX); an SSM trains on the card
+    as on the CPU (the SSD scan has its backward kernel); without a card
+    the card is refused, never replaced by the CPU."""
     with pytest.raises(SystemExit, match="encoder"):
         ttrain.main(["--arch", "hubert-xlarge", "--preset", "smoke",
                      "--device", "cpu"])
-    with pytest.raises(SystemExit, match="SSD scan's backward"):
-        ttrain.main(["--arch", "mamba2-780m", "--preset", "smoke",
-                     "--device", "cuda"])
+    assert ttrain.refusal(get_port("mamba2-780m"), "cuda") is None
     assert ttrain.refusal(get_port("mamba2-780m"), "cpu") is None
     assert ttrain.refusal(get_port("recurrentgemma-2b"), "cuda") is None
     if not torch.cuda.is_available():
