@@ -14,8 +14,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    report of every kernel instantiation; then, from ``cuobjdump -sass``,
    the tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions of each
    bf16 flash instantiation, forward and backward, which must have both,
-   and the tensor-core (``HMMA``) instructions of the bf16 SSD kernel,
-   which must have some;
+   and the tensor-core (``HMMA``) instructions of the bf16 SSD kernels,
+   forward and backward, which must have some;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at the serving shapes, at the tolerances of the JAX package's
    ``tests/test_kernels.py`` (bf16 attention: relative to each output
@@ -113,9 +113,10 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    binding, yi-9b's and chatglm3-6b's groups, every other head dim at a
    small shape, causal and not; the tolerances of attention, on values
    divided by each row's RMS, ``check_grad``; the fp32 cases at S 1000
-   also against the plain version in fp64) and the RG-LRU backward (the
-   kernel on the reversed scan) against autograd of the plain recurrence
-   (S 1000 and 4096, with and without h0), both while the CPU computes
+   also against the plain version in fp64) and the RG-LRU backward (its
+   own entry: the reverse recurrence in one launch) against autograd of
+   the plain recurrence (S 1000 and 4096, with and without h0), both while
+   the CPU computes
    its side of one fp32 train step of a 3-layer recurrentgemma-2b at full
    width over 2100 tokens, card against CPU (loss, every gradient, the
    parameters after the AdamW step, within ``PARITY_REL``), and the card
@@ -137,10 +138,11 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    last loss below the first, and each kernel's launch count (set to 0
    before, read after) exactly the path's: recurrentgemma-2b per step 16
    flash forwards (8 layers, each recomputed under remat), 8 flash
-   backwards, 54 RG-LRU scans of which 18 backward, no decode or SSD
-   scan; mamba2-780m per step 96 SSD scans (48 layers, each recomputed)
-   and 48 SSD backwards, nothing else; and one more step of each traced
-   by the profiler (device busy, kernel time by family).
+   backwards, 36 RG-LRU scans (18 layers, each recomputed) and 18 RG-LRU
+   backwards, no decode or SSD scan; mamba2-780m per step 96 SSD scans
+   (48 layers, each recomputed) and 48 SSD backwards, nothing else; and
+   one more step of each traced by the profiler (device busy, kernel time
+   by family).
 
 The line before the last is the kernels' JSON record (one entry per kernel
 and served model, one for the grid's decode launches and one for the
@@ -244,6 +246,11 @@ GRAD_ROW_FLOOR = 1e-2
 # training shape on an H100 80GB HBM3 at 700 W (PERF.md), printed beside
 # this run's time
 CUDA_CORE_BWD_MS = 5.7713
+# the SSD backward's first version (fp32 on the CUDA cores) and the RG-LRU
+# backward's (the forward kernel on flipped copies), at the training
+# shapes on the same card (PERF.md), printed beside this run's times
+SSD_CUDA_CORE_BWD_MS = 2.5411
+RGLRU_FLIPPED_BWD_MS = 0.3993
 CKPT_DIR = ROOT / "results/out"  # ignored by git; the checkpoint is removed
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
@@ -252,7 +259,8 @@ REPLACES = {
     "rglru_scan": "src/repro/kernels/rglru_scan.py:38",
 }
 # the backward passes: no TPU kernel has one; each backs the forward it
-# differentiates, from its own source (RG-LRU's runs the forward kernel)
+# differentiates, from its own source (RG-LRU's is a second entry of the
+# forward's)
 REPLACES.update(flash_attention_backward=REPLACES["flash_attention"],
                 ssd_scan_backward=REPLACES["ssd_scan"],
                 rglru_scan_backward=REPLACES["rglru_scan"])
@@ -425,8 +433,8 @@ def phase_build():
 
 def sass_counts(build):
     """HGMMA / UTMALDG per bf16 flash instantiation and HMMA in the bf16 SSD
-    kernel (cuobjdump -sass of the built libraries); raises if one has no
-    tensor-core instruction."""
+    kernels, forward and backward (cuobjdump -sass of the built libraries);
+    raises if one has no tensor-core instruction."""
     exe = Path(build.nvcc()).parent / "cuobjdump"
 
     def sass_of(name):
@@ -435,16 +443,17 @@ def sass_counts(build):
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
 
-    ssd = [b for b in sass_of("ssd_scan").split("Function : ")[1:]
-           if re.match(r"\S*ssd_bf16_kernel", b)]
-    if len(ssd) != 1:
-        raise AssertionError(f"found {len(ssd)} bf16 SSD kernels in the "
-                             "SASS, expected 1")
-    n_mma = ssd[0].count("HMMA") + ssd[0].count("HGMMA")
-    log(f"  ssd_scan bf16: {n_mma} HMMA / HGMMA in its SASS")
-    if not n_mma:
-        raise AssertionError("the bf16 SSD kernel has no tensor-core "
-                             "instruction")
+    for lib, kernel in (("ssd_scan", "ssd_bf16_kernel"),
+                        ("ssd_scan_bwd", "ssd_bwd_bf16_kernel")):
+        ssd = [b for b in sass_of(lib).split("Function : ")[1:]
+               if re.match(rf"\S*{kernel}", b)]
+        if len(ssd) != 1:
+            raise AssertionError(f"found {len(ssd)} {kernel} in the SASS, "
+                                 "expected 1")
+        n_mma = ssd[0].count("HMMA") + ssd[0].count("HGMMA")
+        log(f"  {lib} bf16: {n_mma} HMMA / HGMMA in its SASS")
+        if not n_mma:
+            raise AssertionError(f"{kernel} has no tensor-core instruction")
     sass = sass_of("flash_attention")
     found = 0
     for block in sass.split("Function : ")[1:]:
@@ -1580,15 +1589,19 @@ def grads_flash(gen):
 
 
 def grads_rglru(gen):
-    """The RG-LRU backward (the kernel on the reversed scan) against
-    autograd of the plain recurrence, fp32."""
+    """The RG-LRU backward (one launch of its own entry, no forward scan)
+    against autograd of the plain recurrence, fp32."""
     from repro_torch.kernels import rglru_scan as rg
     for s, with_h0 in [(s, h0) for s in (1000, 4096) for h0 in (True, False)]:
         a, b, h0 = rglru_inputs(gen, 4, s, 2560, torch.float32, with_h0)
         g_seq = _randn(gen, 4, s, 2560, dtype=torch.float32)
         g_last = _randn(gen, 4, 2560, dtype=torch.float32)
         h_seq, _ = rg.rglru_scan_cuda(a, b, h0)
+        fwd = rg.launches
         got = rg.rglru_scan_backward_cuda(a, h_seq, h0, g_seq, g_last)
+        if rg.launches != fwd:
+            raise AssertionError("the RG-LRU backward launched a forward "
+                                 "scan")
         leaves = [t.clone().requires_grad_(True) for t in (a, b)]
         if with_h0:
             leaves.append(h0.clone().requires_grad_(True))
@@ -1844,7 +1857,8 @@ def times_rglru_train(gen, records):
         plain_fwd_bwd_ms=plain_both_ms)
     log(f"  rglru at the training shape [{shape}]: forward {ms_fwd:.4f} ms "
         f"(bound {fwd_bound[0]:.4f}, {fwd_bound[1]}), backward {ms_bwd:.4f}"
-        f" ms (bound {bwd_bound[0]:.4f}, {bwd_bound[1]}); forward + "
+        f" ms (bound {bwd_bound[0]:.4f}, {bwd_bound[1]}; the version on "
+        f"flipped copies {RGLRU_FLIPPED_BWD_MS} ms); forward + "
         f"backward: kernel {ms_both:.4f} ms, plain {plain_both_ms:.4f} ms; "
         f"plain forward {plain_fwd_ms:.4f} ms, backward alone "
         f"{plain_bwd_ms:.4f} ms")
@@ -1943,7 +1957,8 @@ def times_ssd_train(gen, records):
         f"(bound {fwd_bound[0]:.4f}, {fwd_bound[1]}; plain "
         f"{plain_fwd_ms:.4f} ms), backward {ms_bwd:.4f} ms (bound "
         f"{bwd_bound[0]:.4f}, {bwd_bound[1]}: {bwd_bytes:.3g} bytes, "
-        f"{bwd_ops:.3g} operations); forward + backward: kernels "
+        f"{bwd_ops:.3g} operations; the CUDA-core version "
+        f"{SSD_CUDA_CORE_BWD_MS} ms); forward + backward: kernels "
         f"{ms_both:.4f} ms, plain {plain_both_ms:.4f} ms; backward alone: "
         f"plain {plain_bwd_ms:.4f} ms")
     del sets
@@ -1971,14 +1986,13 @@ def expected_train_launches(cfg, steps: int) -> dict:
     """Per step: each attention layer's flash forward twice (the forward
     and its recompute under remat) and its backward once; each SSM layer's
     SSD scan twice and its backward kernel once; each RG-LRU layer's scan
-    twice forward and once backward, the backward one more launch of the
-    same kernel."""
+    twice and its backward entry once."""
     kinds = cfg.layer_types()
     n_attn_layers, n_rglru = n_attn(cfg), kinds.count("rglru")
     n_ssm = kinds.count("ssm")
     return {"flash_attention": 2 * n_attn_layers * steps,
             "flash_attention_backward": n_attn_layers * steps,
-            "rglru_scan": 3 * n_rglru * steps,
+            "rglru_scan": 2 * n_rglru * steps,
             "rglru_scan_backward": n_rglru * steps,
             "decode_attention": 0, "ssd_scan": 2 * n_ssm * steps,
             "ssd_scan_backward": n_ssm * steps}

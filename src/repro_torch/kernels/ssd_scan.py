@@ -60,21 +60,41 @@ dC and dh0 by the equations of ``ssd_scan_bwd_chunks``, its CPU
 emulation.  What bounds it at mamba2's training shape (B 4, S 1024, H 48,
 bf16 x / B / C, fp32 dy): bytes, about 106 MB (x, dt, B, C and dy read,
 the gradients written), 0.032 ms at 3.35 TB/s; its chunked products are
-2.9e10 operations, 0.029 ms on the tensor cores.  The first kernel is
-simple: one block of 256 threads per (batch row, head), every product in
-fp32 on the CUDA cores for both dtypes.  It recomputes the chunk-start
-states in a forward sweep instead of having the forward save them: the
-forward kernel keeps its state in registers and writes only h_final, and
-the states are 101 MB fp32 a layer at the training shape (B H chunks N P
-x 4 bytes), held only for the call in the kernel's scratch (written and
-read once, about 0.06 ms of traffic) rather than from the forward to the
-backward.  Then it walks the chunks in reverse with the fp32 carry dH in
-shared memory.  dB and dC sum over the heads and da over the batch rows:
-each block writes fp32 partials (201 MB for dB and dC at the training
-shape) and a second kernel sums them in a fixed order, so two calls give
-bitwise-equal gradients (no float atomics).  ``SSDScan`` pairs the
-forward and backward for autograd; ``bwd_launches`` counts backward
-calls on the card.
+2.9e10 operations, 0.029 ms on the tensor cores.  Both routes recompute
+the chunk-start states in a forward sweep rather than have the forward
+save them (the forward keeps its state in registers and writes only
+h_final; the states are 101 MB fp32 a layer at the training shape, held
+only for the call in the kernel's scratch, written and read once), then
+walk the chunks in reverse with the fp32 carry dH.  dB and dC sum over the
+heads and da over the batch rows: each block writes fp32 partials and a
+second kernel sums them in a fixed order, so two calls give bitwise-equal
+gradients (no float atomics).  The route is chosen by dtype, as the
+forward's:
+
+* bf16 x / B / C (the training path): ``ssd_bwd_bf16_kernel``, on the
+  tensor cores with the forward's precision scheme (one operand exactly
+  bf16, the fp32 one split into hi / lo: two passes; three, hi hi + hi lo
+  + lo hi, where both are fp32: M^T dy and H dy^T).  One block of 4 warps
+  per (batch row, head, 32 of the 64 columns of P), as the forward: column
+  p of dx, dh0 and the carry reads only column p of x, dy, h0 and
+  dh_final, and every other gradient is a sum over p, so the blocks write
+  their shares of ddt, da, dB and dC and ``ssd_bwd_bf16_sum`` adds the
+  column blocks and heads (403 MB of dB / dC partials at the training
+  shape).  Per chunk three phases, each with its own warp layout so that
+  the L x L tiles stay in registers as A operands: by rows i (G = C B^T,
+  dM = dy x^T dt, dG and E; dG's hi / lo tiles go to shared memory), by
+  rows j (G^T recomputed into M^T, du = M^T dy + w B dH, dx), by rows n of
+  the transposes (H dy^T with H from the scratch, dC^T and dB^T written as
+  the block's partials, the carry in accumulator registers).  75,536
+  bytes of shared memory and 168 registers: three blocks an SM, the 384
+  blocks of the training shape in one wave.
+* fp32 x / B / C (the parity path): ``ssd_bwd_kernel``, the first kernel,
+  unchanged: one block of 256 threads per (batch row, head), every product
+  in fp32 on the CUDA cores, then ``ssd_bwd_sum`` over the heads'
+  partials (201 MB).
+
+``SSDScan`` pairs the forward and backward for autograd;
+``bwd_launches`` counts backward calls on the card.
 """
 from __future__ import annotations
 
@@ -91,6 +111,7 @@ bwd_launches = 0  # backward passes on the card (``ssd_scan_bwd_cuda``)
 NEG_INF = -1e30
 CHUNK = 64            # the plain version's chunk (the kernel has its own)
 SHAPES = ((128, 64),)  # (N, P) the kernel is built for
+COL_BLOCK = 32        # columns of P a bf16 block owns (the kernels' PB)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
@@ -211,38 +232,44 @@ def ssd_scan_cuda(xh, dt, a, bmat, cmat, h0=None):
 # -------------------------------------------------------------- backward --
 
 
-def ssd_scan_bwd_chunks(xh, dt, a, bmat, cmat, h0, dy, dh_final):
+def ssd_scan_bwd_chunks(xh, dt, a, bmat, cmat, h0, dy, dh_final,
+                        product=torch.einsum):
     """Gradients of ``y, h_final = ssd_scan(xh, dt, a, bmat, cmat, h0)``
-    by the backward kernel's own algorithm (``csrc/ssd_scan_bwd.cu``),
+    by the backward kernels' algorithm (``csrc/ssd_scan_bwd.cu``),
     vectorised over batch and head, looping over chunks only.
 
     ``dy`` (B, S, H, P) and ``dh_final`` (B, H, N, P) are the incoming
     gradients; either may be None (zero), as may ``h0``.  Returns dx
     (B, S, H, P), ddt (B, S, H), da (H,), dB, dC (B, S, N) and dh0
-    (B, H, N, P), all fp32 (fp64 for fp64 inputs).
+    (B, H, N, P), all fp32 (fp64 for fp64 inputs).  ``product(eq, u, v)``
+    computes each matrix product of two operands (``torch.einsum`` by
+    default; the CPU tests pass one that multiplies as the bf16 kernel's
+    tensor cores do); the other sums are plain.
 
-    First the chunk-start states H_c, forward from h0 (the kernel's first
+    First the chunk-start states H_c, forward from h0 (the kernels' first
     sweep); then, over the chunks in reverse with the carry dH' (the
     gradient of the chunk's end state, ``dh_final`` at the last chunk),
     per (batch row, head) and chunk, in the forward's notation (cum the
     inclusive cumulative sum of dt a in the chunk, tot its last entry,
-    u = dt x, G = C B^T, M_ij = [i >= j] exp(cum_i - cum_j) G_ij):
+    u = dt x, w_j = exp(tot - cum_j), G = C B^T,
+    M_ij = [i >= j] exp(cum_i - cum_j) G_ij):
 
-        dM_ij = [i >= j] dy_i . u_j          dG = dM o exp(cum_i - cum_j)
-        du_j  = sum_i M_ij dy_i + exp(tot - cum_j) dH'^T B_j
-        dC_i  = sum_j dG_ij B_j + exp(cum_i) H dy_i
-        dB_j  = sum_i dG_ij C_i + exp(tot - cum_j) dH' u_j
-        dcum  = rowsum(E) - colsum(E) + exp(cum_i) dy_i . (H^T C_i)
-                - exp(tot - cum_j) u_j . (dH'^T B_j),   E = dM o M,
+        dM_ij = [i >= j] (dy x^T)_ij dt_j    dG = dM o exp(cum_i - cum_j)
+        du_j  = sum_i M_ij dy_i + w_j dH'^T B_j
+        Z     = H dy^T                       (N x L)
+        dC_i  = sum_j dG_ij B_j + exp(cum_i) Z_i
+        dB_j  = sum_i dG_ij C_i + w_j dt_j dH' x_j
+        dcum  = rowsum(E) - colsum(E) + exp(cum_i) C_i . Z_i
+                - w_j u_j . (dH'^T B_j),   E = dM o M,
                 plus <dH', H'> at the chunk's last position
         ds    = the reverse cumulative sum of dcum in the chunk
         ddt   = a ds + x . du,  dx = dt du,  da = sum dt ds
-        dH   <- exp(tot) dH' + sum_i exp(cum_i) C_i dy_i^T
+        dH   <- exp(tot) dH' + sum_i C_i exp(cum_i) dy_i^T
 
     with <dH', H'> = exp(tot) <dH', H> + the sum of the u . (dH'^T B)
-    terms, so the end state is not needed.  Positions past S count as
-    dt = 0 and zero inputs, as in the forward, and their gradients are
-    dropped.
+    terms, so the end state is not needed.  dB and dC sum over the heads.
+    Positions past S count as dt = 0 and zero inputs, as in the forward,
+    and their gradients are dropped.
     """
     b, s, h, p = xh.shape
     n = bmat.shape[-1]
@@ -269,9 +296,10 @@ def ssd_scan_bwd_chunks(xh, dt, a, bmat, cmat, h0, dy, dh_final):
         starts.append(state)
         cum = cums[:, c]
         tot = cum[:, -1]
-        w = (tot[:, None] - cum).exp()
-        state = tot.exp()[:, :, None, None] * state + torch.einsum(
-            "bjn,bjh,bjhp->bhnp", bc[:, c], w, u[:, c])
+        sw = (tot[:, None] - cum).exp() * dtf[:, c]      # w dt, (B, L, H)
+        state = tot.exp()[:, :, None, None] * state + product(
+            "bjhn,bjhp->bhnp", bc[:, c][:, :, None] * sw[..., None],
+            x[:, c])
 
     dh = (torch.zeros(b, h, n, p, device=dev, dtype=ft) if dh_final is None
           else dh_final.to(ft))
@@ -283,29 +311,31 @@ def ssd_scan_bwd_chunks(xh, dt, a, bmat, cmat, h0, dy, dh_final):
         es = cum.exp()
         w = (tot[:, None] - cum).exp()
         hs, bb, cb = starts[c], bc[:, c], cc[:, c]
-        uc, gc = u[:, c], g[:, c]
+        xc, uc, gc, dtc = x[:, c], u[:, c], g[:, c], dtf[:, c]
         dec = (cum[:, :, None] - cum[:, None]).masked_fill(
             ~lower, NEG_INF).exp()                       # (B, L, L, H)
-        m = dec * torch.einsum("bin,bjn->bij", cb, bb)[..., None]
-        dm = torch.einsum("bihp,bjhp->bijh", gc, uc) * lower
+        m = dec * product("bin,bjn->bij", cb, bb)[..., None]
+        dm = product("bihp,bjhp->bijh", gc, xc) * dtc[:, None] * lower
         dg = dm * dec
         e = dm * m
-        bd = torch.einsum("bjn,bhnp->bjhp", bb, dh)      # dH'^T B_j
-        du = torch.einsum("bijh,bihp->bjhp", m, gc) + w[..., None] * bd
-        t1 = es * (gc * torch.einsum("bin,bhnp->bihp", cb, hs)).sum(-1)
+        bd = product("bjn,bhnp->bjhp", bb, dh)           # dH'^T B_j
+        du = product("bijh,bihp->bjhp", m, gc) + w[..., None] * bd
+        z = product("bhnp,bihp->bhni", hs, gc)           # H dy^T
+        t1 = es * torch.einsum("bin,bhni->bih", cb, z)
         t2 = w * (bd * uc).sum(-1)
         dcum = e.sum(2) - e.sum(1) + t1 - t2
         dcum[:, -1] += tot.exp() * (dh * hs).sum((-2, -1)) + t2.sum(1)
         ds = dcum.flip(1).cumsum(1).flip(1)
-        ddts.append(af * ds + (x[:, c] * du).sum(-1))
-        da = da + (dtf[:, c] * ds).sum((0, 1))
-        dxs.append(dtf[:, c][..., None] * du)
-        dcs.append(torch.einsum("bijh,bjn->bin", dg, bb)
-                   + torch.einsum("bih,bihp,bhnp->bin", es, gc, hs))
-        dbs.append(torch.einsum("bijh,bin->bjn", dg, cb)
-                   + torch.einsum("bjh,bjhp,bhnp->bjn", w, uc, dh))
-        dh = tot.exp()[:, :, None, None] * dh + torch.einsum(
-            "bin,bih,bihp->bhnp", cb, es, gc)
+        ddts.append(af * ds + (xc * du).sum(-1))
+        da = da + (dtc * ds).sum((0, 1))
+        dxs.append(dtc[..., None] * du)
+        dcs.append((product("bijh,bjn->bihn", dg, bb)
+                    + es[..., None] * z.permute(0, 3, 1, 2)).sum(2))
+        dbs.append((product("bijh,bin->bjhn", dg, cb)
+                    + (w * dtc)[..., None]
+                    * product("bjhp,bhnp->bjhn", xc, dh)).sum(2))
+        dh = tot.exp()[:, :, None, None] * dh + product(
+            "bihn,bihp->bhnp", cb[:, :, None] * es[..., None], gc)
 
     def seq(chunks):
         return torch.cat(chunks[::-1], dim=1)[:, :s]
@@ -317,19 +347,26 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 +
                  [ctypes.c_int64] * 7 + [ctypes.c_void_p])
 
 
-def bwd_scratch_sizes(b: int, s: int, h: int, p: int, n: int) -> dict:
+def bwd_scratch_sizes(b: int, s: int, h: int, p: int, n: int,
+                      dtype=torch.float32) -> dict:
     """fp32 entries of the backward kernel's scratch: the chunk-start
-    states it recomputes (B, H, chunks, N, P), the per-head partials of dB
-    and dC (H, B, S, N each) and of da (B, H)."""
+    states it recomputes (B, H, chunks, N, P); the partials of dB and dC
+    (K, B, S, N each), K = H for fp32 x / B / C (a block per head) and
+    H P / 32 for bf16 (a block per head and 32 columns of P); and ``da``:
+    the partials of da, (B, H) for fp32, and for bf16 (P / 32, B, H)
+    followed by ddt's (P / 32, B, S, H)."""
     n_chunks = -(-s // CHUNK)
-    return {"states": b * h * n_chunks * n * p, "db": h * b * s * n,
-            "dc": h * b * s * n, "da": b * h}
+    cols = p // COL_BLOCK if dtype == torch.bfloat16 else 1
+    return {"states": b * h * n_chunks * n * p, "db": cols * h * b * s * n,
+            "dc": cols * h * b * s * n,
+            "da": cols * b * h + (cols * b * s * h if cols > 1 else 0)}
 
 
 def ssd_scan_bwd_cuda(xh, dt, a, bmat, cmat, h0, dy, dh_final):
-    """Launch the backward kernel (``ssd_bwd_kernel``, then
-    ``ssd_bwd_sum`` over the heads' partials).  Same contract as
-    ``ssd_scan_bwd_chunks``: every gradient fp32."""
+    """Launch the backward route of xh's dtype (bf16: ``ssd_bwd_bf16_kernel``
+    then ``ssd_bwd_bf16_sum``; fp32: ``ssd_bwd_kernel`` then
+    ``ssd_bwd_sum``).  Same contract as ``ssd_scan_bwd_chunks``: every
+    gradient fp32."""
     global bwd_launches
     _check(xh, dt, a, bmat, cmat, h0)
     b, s, h, p = xh.shape
@@ -343,7 +380,7 @@ def ssd_scan_bwd_cuda(xh, dt, a, bmat, cmat, h0, dy, dh_final):
                              f"contiguous float32 {shape} tensor on "
                              f"{xh.device}")
     lib = _build.library("ssd_scan_bwd", _BWD_ARGTYPES)
-    sizes = bwd_scratch_sizes(b, s, h, p, n)
+    sizes = bwd_scratch_sizes(b, s, h, p, n, xh.dtype)
     with torch.cuda.device(xh.device):
         f32 = dict(dtype=torch.float32, device=xh.device)
         dx = torch.empty((b, s, h, p), **f32)

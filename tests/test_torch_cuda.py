@@ -345,23 +345,49 @@ def _kernel_case(name, rng, device):
                                            rtol=SSD_TOL, atol=SSD_TOL)
         return (lambda: tssd.ssd_scan_cuda(*args),
                 lambda: tssd.ssd_scan_torch(*args), cmp)
+    if name == "ssd_scan_backward":
+        args = ssd_args(device, rng, 2, 300, 48, torch.bfloat16, True)
+        dy = on(device, rng, 2, 300, 48, 64)
+        dh = on(device, rng, 2, 48, 128, 64)
+
+        def cmp(got, want):
+            for g, w in zip(got, want):
+                scale = float(w.abs().max()) + 1e-9
+                torch.testing.assert_close(g / scale, w / scale,
+                                           rtol=SSD_TOL, atol=SSD_TOL)
+        return (lambda: tssd.ssd_scan_bwd_cuda(*args, dy, dh),
+                lambda: plain_ssd_grads(args, dy, dh), cmp)
     a = torch.sigmoid(on(device, rng, 2, 4096, 2560)) * 0.2 + 0.8
     bb = on(device, rng, 2, 4096, 2560, scale=0.1)
 
     def cmp(got, want):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, **SCAN)
+    if name == "rglru_scan_backward":
+        h_seq = trglru.rglru_scan_torch(a, bb)[0]
+        g_seq, g_last = on(device, rng, 2, 4096, 2560), on(device, rng, 2,
+                                                            2560)
+
+        def plain():
+            leaves = [t.clone().requires_grad_(True) for t in (a, bb)]
+            return torch.autograd.grad(trglru.rglru_scan_torch(*leaves),
+                                       leaves, (g_seq, g_last))
+        return (lambda: trglru.rglru_scan_backward_cuda(a, h_seq, None,
+                                                        g_seq, g_last)[:2],
+                plain, cmp)
     return (lambda: trglru.rglru_scan_cuda(a, bb),
             lambda: trglru.rglru_scan_torch(a, bb), cmp)
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
-                                  "ssd_scan", "rglru_scan"])
+                                  "ssd_scan", "rglru_scan",
+                                  "ssd_scan_backward", "rglru_scan_backward"])
 def test_kernel_on_smallest_partition_after_whole_card(cuda, smallest, name):
     """Each kernel launched first on the whole card, then on 24 SMs (the
     per-context attributes must be set again there), against its plain
-    version.  The RG-LRU case runs 128 chunks, so its look-back waits on
-    blocks that a small partition runs in many waves."""
+    version.  The RG-LRU cases run 128 chunks, so their look-backs wait on
+    blocks that a small partition runs in many waves; the SSD backward's
+    384 blocks run there in several waves too."""
     call, plain, cmp = _kernel_case(name, np.random.default_rng(11), cuda)
     whole = call()
     torch.cuda.synchronize()
@@ -593,27 +619,89 @@ def test_flash_op_with_grad_runs_both_kernels(cuda):
         close_grad_rows(g, w, torch.float32)
 
 
-@pytest.mark.parametrize("s", [1, 33, 130, 1000])
+def rglru_grads(a, bb, h0, g_seq, g_last):
+    """The backward kernel (checked to be one launch of its own entry and
+    no forward scan) beside autograd of the plain recurrence: (got,
+    want), each (da, db[, dh0])."""
+    h_seq, _ = trglru.rglru_scan_cuda(a, bb, h0)
+    before, fwd = trglru.bwd_launches, trglru.launches
+    got = trglru.rglru_scan_backward_cuda(a, h_seq, h0, g_seq, g_last)
+    assert (trglru.bwd_launches, trglru.launches) == (before + 1, fwd)
+    # fp32 leaves (bf16 a and b widened exactly): fp32 gradients
+    leaves = [t.float().clone().requires_grad_(True) for t in (a, bb)]
+    if h0 is not None:
+        leaves.append(h0.clone().requires_grad_(True))
+    outs = trglru.rglru_scan_torch(*leaves[:2],
+                                   leaves[2] if h0 is not None else None)
+    want = torch.autograd.grad(outs, leaves, (g_seq, g_last))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 130, 1000, 4096])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_rglru_backward_matches_autograd_of_plain_version(cuda, s, with_h0):
-    """The reverse scan through the kernel against autograd of the
-    plain recurrence, fp32, recurrentgemma's width."""
+    """The backward entry (the reverse recurrence read straight from a,
+    g and h_seq) against autograd of the plain recurrence, fp32,
+    recurrentgemma's width, S around the 32-step chunk and past a
+    32-chunk look-back window; one launch and no forward scan a call."""
     rng = np.random.default_rng(s + 40)
     a = torch.sigmoid(on(cuda, rng, 2, s, 2560)) * 0.2 + 0.8
     bb = on(cuda, rng, 2, s, 2560, scale=0.1)
     h0 = on(cuda, rng, 2, 2560) if with_h0 else None
-    g_seq, g_last = on(cuda, rng, 2, s, 2560), on(cuda, rng, 2, 2560)
-    h_seq, _ = trglru.rglru_scan_cuda(a, bb, h0)
-    before, fwd = trglru.bwd_launches, trglru.launches
-    got = trglru.rglru_scan_backward_cuda(a, h_seq, h0, g_seq, g_last)
-    assert (trglru.bwd_launches, trglru.launches) == (before + 1, fwd + 1)
-    leaves = [t.requires_grad_(True) for t in (a.clone(), bb.clone())]
-    if with_h0:
-        leaves.append(h0.clone().requires_grad_(True))
-    outs = trglru.rglru_scan_torch(*leaves[:2],
-                                   leaves[2] if with_h0 else None)
-    want = torch.autograd.grad(outs, leaves, (g_seq, g_last))
-    torch.cuda.synchronize()
+    got, want = rglru_grads(a, bb, h0, on(cuda, rng, 2, s, 2560),
+                            on(cuda, rng, 2, 2560))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SCAN)
+
+
+@pytest.mark.parametrize("a_range", [(0.999, 1.0), (0.0, 0.01)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_backward_odd_width_a_near_one_and_zero(cuda, a_range, dtype):
+    """An odd width (a tile's last lanes idle), a near 1 (the gradient
+    carries over the whole sequence and grows to about 100 here) and near
+    0 (it vanishes), a in both dtypes, with h0.  Held against the
+    recurrence in float64, each gradient divided by its max: at a near 1
+    the fp32 plain recurrence itself is about 1e-4 off in absolute terms,
+    so an absolute 1e-5 against it would measure its rounding, not the
+    kernel's."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.uniform(*a_range, (2, 300, 2561))
+                         .astype(np.float32)).to(cuda).to(dtype)
+    bb = on(cuda, rng, 2, 300, 2561, scale=0.1).to(dtype)
+    h0 = on(cuda, rng, 2, 2561)
+    g_seq, g_last = on(cuda, rng, 2, 300, 2561), on(cuda, rng, 2, 2561)
+    got, _ = rglru_grads(a, bb, h0, g_seq, g_last)
+    leaves = [t.double().requires_grad_(True) for t in (a, bb, h0)]
+    h, hs = leaves[2], []
+    for t in range(a.shape[1]):
+        h = leaves[0][:, t] * h + leaves[1][:, t]
+        hs.append(h)
+    exact = torch.autograd.grad((torch.stack(hs, 1), h), leaves,
+                                (g_seq.double(), g_last.double()))
+    for g, w in zip(got, exact):
+        scale = float(w.abs().max()) + 1e-30
+        torch.testing.assert_close(g.double() / scale, w / scale, **SCAN)
+
+
+def test_rglru_backward_of_h_last_alone(cuda):
+    """A loss on h_last only through ``ops.rglru_scan``: autograd hands
+    the Function a zero gradient of h_seq; one forward and one backward
+    launch, the gradients within the scan tolerance of the plain
+    version's."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(12)
+    a = (torch.sigmoid(on(cuda, rng, 2, 100, 2560)) * 0.2 + 0.8)
+    bb, h0 = on(cuda, rng, 2, 100, 2560, scale=0.1), on(cuda, rng, 2, 2560)
+    leaves = [t.clone().requires_grad_(True) for t in (a, bb, h0)]
+    before = (trglru.launches, trglru.bwd_launches)
+    _, h_last = ops.rglru_scan(*leaves)
+    got = torch.autograd.grad(h_last.square().sum(), leaves)
+    assert (trglru.launches, trglru.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    plain = [t.clone().requires_grad_(True) for t in (a, bb, h0)]
+    want = torch.autograd.grad(trglru.rglru_scan_torch(*plain)[1].square()
+                               .sum(), plain)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **SCAN)
 
@@ -677,6 +765,19 @@ def test_ssd_backward_with_unaligned_b_c_is_deterministic(cuda, dtype):
     dh_final = on(cuda, rng, 2, 5, 128, 64)
     got = check_ssd_backward(args, dy, dh_final)
     again = tssd.ssd_scan_bwd_cuda(*args, dy, dh_final)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_ssd_backward_at_the_training_shape_is_deterministic(cuda):
+    """mamba2-780m's training shape (bf16 x / B / C, B4 S1024 H48 P64
+    N128, no h0): the tensor-core kernel against autograd of the plain
+    version, and a second call bitwise equal (the column blocks' and
+    heads' partials are summed in order, no atomics)."""
+    rng = np.random.default_rng(1024)
+    args = ssd_args(cuda, rng, 4, 1024, 48, torch.bfloat16, False)
+    dy = on(cuda, rng, 4, 1024, 48, 64)
+    got = check_ssd_backward(args, dy, None)
+    again = tssd.ssd_scan_bwd_cuda(*args, dy, None)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
@@ -767,7 +868,7 @@ def test_hybrid_train_step_on_the_card_matches_the_cpu(cuda):
         (tflash.launches, tflash.bwd_launches, trglru.launches,
          trglru.bwd_launches), counts))
     # 1 attention and 2 RG-LRU layers: forwards twice, backwards once
-    assert rose == (2, 1, 6, 2)
+    assert rose == (2, 1, 4, 2)
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
     for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
         err = float((p.grad.cpu() - q.grad).abs().max())

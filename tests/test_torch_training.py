@@ -35,6 +35,7 @@ from repro.checkpoint import load_checkpoint as jax_load  # noqa: E402
 from repro.checkpoint import save_checkpoint as jax_save  # noqa: E402
 from repro.checkpoint import store as jstore  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.training import optim as joptim  # noqa: E402
@@ -331,6 +332,75 @@ def test_rglru_reverse_scan_matches_autograd(s, with_h0, a_range):
     again = torch.autograd.grad(outs2, leaves2, (g_seq, g_last))
     for g, w in zip(again, want):
         torch.testing.assert_close(g, w, **SCAN)
+
+
+def rglru_bwd_chunk_emulation(a, h_seq, h0, g_seq, g_last, rng,
+                              t=trglru.CHUNK):
+    """The backward entry's arithmetic (``csrc/rglru_scan.cu``, REV) on
+    the CPU: chunks walked from the last, each step's coefficient read as
+    a_{t+1} (0 at t = S - 1) and its input as g_t (g_last added at
+    t = S - 1), straight from the tensors; each chunk's aggregate over its
+    steps in reverse; its carry folded from the end state of an earlier
+    position j of the walk (-1: zero) and the aggregates between, j drawn
+    from ``rng`` as a look-back may find it; then its steps re-run from
+    the carry, writing db_t = G_t and da_t = G_t h_{t-1} (h0 or 0 at
+    t = 0); dh0 = a_0 G_0."""
+    bsz, s, w = a.shape
+    zero = torch.zeros(bsz, w)
+
+    def coef(u):
+        return a[:, u + 1] if u + 1 < s else zero
+
+    def inp(u):
+        return g_seq[:, u] + g_last if u == s - 1 else g_seq[:, u]
+
+    n_chunks = -(-s // t)
+    aggs, ends = [], []
+    da, db = torch.empty(bsz, s, w), torch.empty(bsz, s, w)
+    for k in range(n_chunks):
+        c = n_chunks - 1 - k
+        steps = range(c * t, min(s, (c + 1) * t))
+        prod, end = torch.ones(bsz, w), zero
+        for u in reversed(steps):
+            prod, end = prod * coef(u), coef(u) * end + inp(u)
+        aggs.append((prod, end))
+        j = int(rng.integers(-1, k)) if k else -1
+        grad = ends[j] if j >= 0 else zero
+        for p_, e_ in aggs[j + 1:k]:
+            grad = p_ * grad + e_
+        ends.append(prod * grad + end)
+        for u in reversed(steps):
+            grad = coef(u) * grad + inp(u)
+            db[:, u] = grad
+            prev = (h_seq[:, u - 1] if u > 0 else
+                    zero if h0 is None else h0)
+            da[:, u] = grad * prev
+    return da, db, a[:, 0] * grad
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 150])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("a_range", [(0.8, 1.0), (0.999, 1.0), (0.0, 0.01)])
+def test_rglru_fused_backward_algebra_matches_jax_vjp(s, with_h0, a_range):
+    """The index algebra of the fused backward kernel (the shifted a,
+    g_last folded in at t = S - 1, h_{t-1} with h0, chunks of 32 walked
+    from the end with their look-back) against ``jax.vjp`` of the JAX
+    reference recurrence ``ref.rglru_scan_ref``, at the scan tolerance."""
+    rng = np.random.default_rng(s + 300)
+    a = rng.uniform(*a_range, (2, s, 8)).astype(np.float32)
+    b = (rng.standard_normal((2, s, 8)) * 0.1).astype(np.float32)
+    h0 = rng.standard_normal((2, 8)).astype(np.float32) if with_h0 else None
+    g_seq = rng.standard_normal((2, s, 8)).astype(np.float32)
+    g_last = rng.standard_normal((2, 8)).astype(np.float32)
+    prim = [jnp.asarray(v) for v in (a, b) + ((h0,) if with_h0 else ())]
+    (h_seq, _), vjp = jax.vjp(jref.rglru_scan_ref, *prim)
+    want = vjp((jnp.asarray(g_seq), jnp.asarray(g_last)))
+    got = rglru_bwd_chunk_emulation(
+        torch.from_numpy(a), torch.from_numpy(np.array(h_seq)),
+        None if h0 is None else torch.from_numpy(h0),
+        torch.from_numpy(g_seq), torch.from_numpy(g_last), rng)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **SCAN)
 
 
 FLASH_BWD_CASES = [
