@@ -79,10 +79,16 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    ``FORWARD_BAND`` of it); the check
    that no side of a split is priced from more SMs than it gets; and, from
    the grid just measured, the five schedulers' largest schedulable
-   multiple of the mix on 4 cards and a replay of the elastic placement
-   through the event engine that must conserve every request (host work
-   alone: ``launch/serve.py`` in a process of its own, ``start_serve``,
-   run beside phases 7-8 and printed after phase 8);
+   multiple of the mix on 4 cards, a replay of the elastic placement
+   through the event engine that must conserve every request, and the
+   fleet layer (``launch/serve.py --fleet 1,2,4``: the copied ``fabric``
+   on nodes of 4 cards priced from this grid, interference off: the
+   weak-scaling sweep at 1, 2 and 4 nodes, a node of 4 dying at half the
+   horizon and a seeded fault storm on 4, each run's line printed, each
+   of which must conserve its requests, and a 1-node fleet that must be
+   the bare replay on the same requests) (host work alone:
+   ``launch/serve.py`` in a process of its own, ``start_serve``, run
+   beside phases 7-8 and printed after phase 8);
 7. interference (``launch/profile_interference.py``, ``core/h100intf.py``):
    the co-run factors of the ten pairs of distinct models of the mix on
    the 40/60 carve (56 + 76 SMs) at batch 8 on both sides, at most two
@@ -102,10 +108,10 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    both ``gpulet`` variants at 0.999 of their maxima under the measured
    interference, and the serving controller under the fluctuating rates of
    the JAX package's example, at the example's share of the elastic
-   maximum (``launch/serve.py --fluctuate``, interference off), each of
-   which must conserve its requests (these last from the committed tables
-   alone, in a process of their own started before phase 6 and printed
-   after phase 8);
+   maximum (``launch/serve.py --fluctuate``, interference off), and the
+   fleet layer as in phase 6, each of which must conserve its requests
+   (these last from the committed tables alone, in a process of their own
+   started before phase 6 and printed after phase 8);
 8. train (recurrentgemma-2b, ``TRAIN_ARCH``, and mamba2-780m,
    ``SSM_ARCH``): the flash backward against
    autograd of the plain version (dq, dk, dv; bf16 and fp32; at
@@ -222,11 +228,13 @@ LBP_OUT = ROOT / "results/out/h100_lbp.jsonl"
 # the committed tables the interference phase compares with and replays
 COMMITTED = {n: ROOT / f"results/h100_{n}.jsonl"
              for n in ("lbp", "corun", "features")}
+# the fleet's node counts (``launch/serve.py --fleet``) on either table
+FLEET = "1,2,4"
 # phase 7's schedulers on them (``launch/serve.py``, host work alone)
 COMMITTED_REPLAY = (
     "--results", str(COMMITTED["lbp"]), "--corun", str(COMMITTED["corun"]),
     "--features", str(COMMITTED["features"]), "--gpus", "4", "--max-scale",
-    "--replay", "--fluctuate")
+    "--replay", "--fluctuate", "--fleet", FLEET)
 CORUN_CARVE, CORUN_BATCH = 40, 8  # the co-run subset: 56 + 76 SMs, batch 8
 MIN_FACTOR = 0.95  # a co-run faster than solo by more than this is a fault
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
@@ -1264,7 +1272,7 @@ def phase_partitions(records: dict, procs: dict):
     pp.write(grid, LBP_OUT)
     procs["grid"] = start_serve("--results", str(LBP_OUT), "--gpus", "4",
                                 "--max-scale", "--replay",
-                                "--no-interference")
+                                "--no-interference", "--fleet", FLEET)
     log(pp.table(grid))
     dec = records["decode_attention", "yi-9b"]
     # the grid's own record: yi-9b's shape, measured in phases 3 and 6
@@ -1283,8 +1291,9 @@ def phase_partitions(records: dict, procs: dict):
             raise AssertionError(f"split {pair}: a side is priced from more "
                                  "SMs than it gets")
 
-    log("  the five schedulers' max scales on this grid and the elastic "
-        "plan's replay run beside phases 7-8; their lines follow phase 8")
+    log("  the five schedulers' max scales on this grid, the elastic "
+        "plan's replay and the fleet run beside phases 7-8; their lines "
+        "follow phase 8")
     return grid
 
 
@@ -1494,14 +1503,40 @@ def finish_serve(proc: subprocess.Popen, header: str) -> dict:
     return json.loads(lines[-1])
 
 
+def check_fleet(result: dict, table: str):
+    """A ``--fleet`` run's record: the sweep at every node count, the
+    failure drain and the storm each conserve their requests, and the
+    1-node fleet is the bare replay on the same requests."""
+    fleet = result["fleet"]
+    runs = fleet["runs"]
+    want = [f"sweep-{n}n" for n in FLEET.split(",")]
+    n = FLEET.split(",")[-1]
+    want += [f"faildrain-{n}n", f"chaos-{n}n"]
+    log(f"  fleet on {table}: " + ", ".join(
+        f"{r['run']} {r['goodput_per_node_req_s']:.1f} req/s a node, "
+        f"{r['violation_rate'] * 100:.3f}% violations, conserved "
+        f"{r['conserved']}" for r in runs))
+    if [r["run"] for r in runs] != want:
+        raise AssertionError(f"the fleet ran {[r['run'] for r in runs]}, "
+                             f"not {want}")
+    if not all(r["conserved"] and r["total"] > 0 for r in runs):
+        raise AssertionError(f"a fleet run lost requests: {runs}")
+    if not fleet["bare_equal"]:
+        raise AssertionError("the 1-node fleet is not the bare replay")
+
+
 def finish_schedules(procs: dict):
     """Phases 6 and 7's scheduler processes, read and checked."""
-    check_grid_schedule(finish_serve(
-        procs["grid"], "[6] (continued) the schedulers on this run's grid, "
-        "run beside phases 7-8:"))
-    check_committed_replay(finish_serve(
+    grid = finish_serve(
+        procs["grid"], "[6] (continued) the schedulers and the fleet on "
+        "this run's grid, run beside phases 7-8:")
+    check_grid_schedule(grid)
+    check_fleet(grid, "this run's grid")
+    committed = finish_serve(
         procs["committed"], "[7] (continued) the committed tables, run "
-        "beside phases 6-8:"))
+        "beside phases 6-8:")
+    check_committed_replay(committed)
+    check_fleet(committed, "the committed tables")
 
 
 # ------------------------------------------------------------- training ----

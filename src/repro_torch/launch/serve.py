@@ -44,8 +44,23 @@ copied controller's own ``run`` would build an engine on the analytic
 2080 Ti model).  It prints the violations per window, per model and in
 all.
 
+``--fleet`` (node counts, default 1,2,4) serves the fleet layer
+(``fabric/``, copied from the JAX package) on nodes of ``--gpus`` cards
+priced from the catalog, the counterpart of the JAX package's
+``benchmarks/fig_fabric_scaling.py::run_sweep`` and of ``fig_chaos``'s
+storm: a weak-scaling sweep over the node counts, each node at
+``SWEEP_SHARE`` of the most Elastic Partitioning places on it, 20 / 50 / 30
+gold / silver / bronze traffic, preemption, the least-loaded router and a
+0.15 ms one-way RPC; one node of the largest fleet dying at half the
+horizon; and a seeded fault storm (``faults.chaos_plan``) on the largest
+fleet.  The nodes' engines run with interference off (a fleet node is the
+copied engine, not the measured one).  A 1-node fleet with no network and
+one class must give the metrics of the bare replay (``serve_end_to_end``,
+interference off) on the same requests.  It prints one JSON line per run.
+
 It prints one JSON line last and exits nonzero unless every request of
-every replay and of the controller's run completed or was dropped.  The
+every replay, of the controller's run and of every fleet run completed or
+was dropped, and the 1-node fleet is the bare replay.  The
 cluster is the scheduler's arithmetic over one card's measured tables, so
 it needs no card, and everything here runs on the CPU:
 
@@ -68,10 +83,13 @@ The counterpart of the JAX package's ``launch/serve.py`` and of
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import itertools
 import json
 import math
 import sys
+import time
 
 from repro_torch.core.elastic import ElasticPartitioning
 from repro_torch.core.gpulet import (GpuLet, GpuState,
@@ -95,6 +113,16 @@ REPLAY_SHARE = 0.6    # of the elastic maximum, for the replay without a
 #                       co-run table
 AT_MAX_SHARE = 0.999  # of each scheduler's own maximum, for the replays
 #                       under measured interference (Fig. 13)
+#: the fleet's per-node load as a share of the most its node's scheduler
+#: admits: the JAX package's fabric sweep runs each node at
+#: ``core.scenarios.SWEEP_NODE_RATES``, 1 / 9.6875 of what plain Elastic
+#: Partitioning places on the paper's four 2080 Ti (the analytic profiles;
+#: tests/test_torch_fleet.py recomputes it through the JAX package): a
+#: comfortably schedulable point, so that the sweep measures the fabric's
+#: overhead, not overload
+SWEEP_SHARE = 1 / 9.6875
+FLEET_NODES = "1,2,4"
+FLEET_NET_MS = 0.15  # the sweep's one-way RPC delay per dispatch
 #: examples/fluctuating_rates.py: the paper's five models' base rates
 #: (req/s), the seed of its arrivals and its horizon
 EXAMPLE_BASE = {"le": 100, "goo": 60, "res": 40, "ssd": 30, "vgg": 25}
@@ -176,23 +204,31 @@ def plan(profiles, provider, rates, n_gpus: int, intf_model=None):
     return sched.schedule(rates)
 
 
+def poisson_requests(profiles, rates, horizon_ms: float, seed: int):
+    """Poisson arrivals of every model of ``rates`` over the horizon."""
+    from repro_torch.simulator import PoissonArrivals
+    from repro_torch.simulator.events import merge_sorted
+    gen = PoissonArrivals(seed=seed)
+    return merge_sorted([
+        gen.constant(m, r, profiles[m].slo_ms, horizon_ms)
+        for m, r in rates.items()])
+
+
 def serve_end_to_end(profiles, provider, rates, *, n_gpus: int = 4,
                      horizon_s: float = 20.0, seed: int = 0, corun=None,
-                     intf_model=None):
+                     intf_model=None, requests=None):
     """Run an h100-let schedule (Elastic Partitioning, with
     ``intf_model`` in its admission test if given) through the event
     engine, with ``corun``'s measured co-run factors as the ground truth,
     or without interference if there is no table; returns (metrics,
-    schedule)."""
-    from repro_torch.simulator import EngineConfig, PoissonArrivals
-    from repro_torch.simulator.events import merge_sorted
+    schedule).  ``requests`` replaces the Poisson arrivals drawn from
+    ``seed``; their outcomes are written into them."""
+    from repro_torch.simulator import EngineConfig
     from repro_torch.simulator.h100engine import MeasuredInterferenceEngine
     result = plan(profiles, provider, rates, n_gpus, intf_model)
     horizon_ms = horizon_s * 1e3
-    gen = PoissonArrivals(seed=seed)
-    reqs = merge_sorted([
-        gen.constant(m, r, profiles[m].slo_ms, horizon_ms)
-        for m, r in rates.items()])
+    reqs = (poisson_requests(profiles, rates, horizon_ms, seed)
+            if requests is None else requests)
     eng = MeasuredInterferenceEngine(
         profiles,
         EngineConfig(horizon_ms=horizon_ms, acc=H100_SXM, lat=provider,
@@ -200,6 +236,139 @@ def serve_end_to_end(profiles, provider, rates, *, n_gpus: int = 4,
         schedule=result, corun=corun)
     eng.submit(reqs)
     return eng.run(), result
+
+
+def fleet_per_node(profiles, provider, rates, n_gpus: int):
+    """(per-node rates, Elastic Partitioning's maximum on a node):
+    ``rates`` at :data:`SWEEP_SHARE` of the most that Elastic Partitioning
+    places on one node of ``n_gpus`` cards."""
+    lam = ElasticPartitioning({m: profiles[m] for m in rates},
+                              cluster=cluster_of(n_gpus),
+                              lat=provider).max_scale(rates, 0.0, SEARCH_HI)
+    return {m: r * lam * SWEEP_SHARE for m, r in rates.items()}, lam
+
+
+def fleet_config(provider, horizon_s: float, seed: int, **kw):
+    """The JAX fabric sweep's configuration, priced from ``provider``,
+    with interference off."""
+    from repro_torch.fabric import FabricConfig, NetworkModel
+    return FabricConfig(horizon_ms=horizon_s * 1e3, policy="least-loaded",
+                        network=NetworkModel(base_ms=FLEET_NET_MS,
+                                             seed=seed),
+                        preemption=True, lat=provider, interference=False,
+                        **kw)
+
+
+def fleet_summary(name: str, n_nodes: int, trace, fm, host_s: float
+                  ) -> dict:
+    """One fleet run's line.  ``conserved``: the fleet's completed and
+    dropped (the shed and the lost among them) make its total, the trace's
+    length, and no request of the trace is left pending."""
+    from repro_torch.fabric.priority import CLASS_NAMES
+    from repro_torch.simulator.trace import PENDING
+    f = fm.fleet
+    shed, lost = fm.shed_total(), fm.lost_total()
+    return {"run": name, "nodes": n_nodes, "total": f.total,
+            "completed": f.completed, "dropped": f.dropped, "shed": shed,
+            "lost": lost, "goodput_per_node_req_s": fm.goodput_req_s
+            / n_nodes, "violation_rate": f.violation_rate,
+            "per_class": {CLASS_NAMES.get(lv, str(lv)): {
+                "total": pc["total"], "violation_rate":
+                pc["violations"] / max(pc["total"], 1)}
+                for lv, pc in sorted(f.per_class.items())},
+            "dispatched": sum(fm.stats.dispatched.values()),
+            "failed_over": fm.failed_over, "host_s": host_s,
+            "conserved": bool(
+                f.total == len(trace) and f.completed + f.dropped == f.total
+                and shed + lost <= f.dropped
+                and not (trace.status == PENDING).any())}
+
+
+def serve_fleet(name: str, scn, profiles, cfg, *, n_gpus: int,
+                horizon_s: float, seed: int) -> dict:
+    """Build the fleet of ``scn`` on nodes of ``n_gpus`` cards, serve its
+    seeded trace and summarise the run."""
+    from repro_torch.fabric import build_fabric, build_trace_soa
+    t0 = time.perf_counter()
+    profs = {m: profiles[m] for m in scn.rates}
+    fabric = build_fabric(scn, profs, cfg, node_cluster=cluster_of(n_gpus))
+    trace = build_trace_soa(scn, profs, horizon_s, seed=seed)
+    fm = fabric.serve_trace(trace)
+    return fleet_summary(name, scn.n_nodes, trace, fm,
+                         time.perf_counter() - t0)
+
+
+def fleet_storm(n_nodes: int, horizon_s: float, seed: int):
+    """``fig_chaos``'s storm: transient crashes and stragglers scaled with
+    the fleet, one permanent crash where a node survives it, one lossy
+    network window."""
+    from repro_torch.faults import chaos_plan
+    return chaos_plan(n_nodes, horizon_s * 1e3, seed=seed,
+                      n_transient=max(1, n_nodes // 4),
+                      n_permanent=min(1, n_nodes - 1),
+                      n_stragglers=max(1, n_nodes // 4), n_net=1)
+
+
+def fleet(profiles, provider, per_node, node_counts, *, n_gpus: int = 4,
+          horizon_s: float = 20.0, seed: int = 0) -> list[dict]:
+    """The weak-scaling sweep over ``node_counts`` at ``per_node`` req/s
+    a node, one node of the largest fleet dying at half the horizon, and
+    a fault storm on it."""
+    from repro_torch.core.scenarios import (fabric_node_sweep,
+                                            failure_drain_scenario)
+    kw = dict(n_gpus=n_gpus, horizon_s=horizon_s, seed=seed)
+    runs = [serve_fleet(scn.name, scn, profiles,
+                        fleet_config(provider, horizon_s, seed), **kw)
+            for scn in fabric_node_sweep(per_node, tuple(node_counts))]
+    n = max(node_counts)
+    drain = failure_drain_scenario(n, per_node, fail_at_s=horizon_s / 2)
+    runs.append(serve_fleet(drain.name, drain, profiles,
+                            fleet_config(provider, horizon_s, seed), **kw))
+    storm = fabric_node_sweep(per_node, (n,))[0]
+    runs.append(serve_fleet(
+        f"chaos-{n}n", storm, profiles,
+        fleet_config(provider, horizon_s, seed,
+                     faults=fleet_storm(n, horizon_s, seed)), **kw))
+    return runs
+
+
+def bare_fleet(profiles, provider, rates, *, n_gpus: int = 4,
+               horizon_s: float = 20.0, seed: int = 0):
+    """A 1-node fleet with no network delay and one class, and
+    :func:`serve_end_to_end` with interference off, on the same Poisson
+    requests: (the fleet's metrics, the bare engine's, the two request
+    lists)."""
+    from repro_torch.fabric import FabricConfig, ServingFabric
+    reqs = poisson_requests(profiles, rates, horizon_s * 1e3, seed)
+    theirs = copy.deepcopy(reqs)
+    fabric = ServingFabric.build(
+        {m: profiles[m] for m in rates}, 1, rates,
+        FabricConfig(horizon_ms=horizon_s * 1e3, lat=provider,
+                     interference=False), node_cluster=cluster_of(n_gpus))
+    fm = fabric.serve(theirs)
+    met, _ = serve_end_to_end(profiles, provider, rates, n_gpus=n_gpus,
+                              horizon_s=horizon_s, seed=seed, requests=reqs)
+    return fm, met, theirs, reqs
+
+
+def same_metrics(a, b) -> bool:
+    """Two ``SimMetrics`` field by field (NaN equal to NaN)."""
+    return json.dumps(dataclasses.asdict(a), sort_keys=True) == json.dumps(
+        dataclasses.asdict(b), sort_keys=True)
+
+
+def is_bare(fm, met, fleet_reqs, bare_reqs) -> bool:
+    """:func:`bare_fleet`'s two runs agree: the node's metrics are the
+    engine's in every field, the fleet's too apart from the gpu-lets' busy
+    time (which a fleet does not collect), and every request has the same
+    outcome."""
+    return (same_metrics(fm.per_node[0], met)
+            and same_metrics(dataclasses.replace(
+                fm.fleet, busy_ms_per_gpulet=met.busy_ms_per_gpulet), met)
+            and [(r.model, r.arrival_ms, r.completion_ms, r.dropped)
+                 for r in fleet_reqs]
+            == [(r.model, r.arrival_ms, r.completion_ms, r.dropped)
+                for r in bare_reqs])
 
 
 def fluctuating_rates(rates) -> dict:
@@ -379,6 +548,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fluctuate", action="store_true",
                     help="run the serving controller under fluctuating "
                          "rates (Fig. 14)")
+    ap.add_argument("--fleet", nargs="?", const=FLEET_NODES, default=None,
+                    help="serve the fleet layer on nodes of --gpus cards: "
+                         "comma list of node counts (default "
+                         f"{FLEET_NODES})")
     ap.add_argument("--horizon-s", type=float, default=20.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -505,7 +678,38 @@ def main(argv=None) -> int:
               " (interference off)")
         line["fluctuate"] = fl
         ok = ok and fl["conserved"] and fl["total"] > 0
-    if args.replay or args.fluctuate:
+    if args.fleet:
+        counts = sorted({int(n) for n in args.fleet.split(",")})
+        if counts[0] < 1:
+            raise SystemExit(f"--fleet {args.fleet}: a fleet has a node "
+                             "or more")
+        per_node, lam_node = fleet_per_node(profiles, provider, rates,
+                                            args.gpus)
+        print(f"fleet: nodes of {args.gpus} card(s) at {SWEEP_SHARE:.5f} "
+              f"of elastic's maximum on a node ({lam_node:g}x the mix), "
+              f"{sum(per_node.values()):.1f} req/s a node, 20/50/30 "
+              f"gold/silver/bronze, least-loaded, {FLEET_NET_MS} ms RPC, "
+              f"preemption, interference off, {args.horizon_s:g} s, seed "
+              f"{args.seed}; L(b, p) from {source}")
+        runs = fleet(profiles, provider, per_node, counts, n_gpus=args.gpus,
+                     horizon_s=args.horizon_s, seed=args.seed)
+        fm, met, fleet_reqs, bare_reqs = bare_fleet(
+            profiles, provider, per_node, n_gpus=args.gpus,
+            horizon_s=args.horizon_s, seed=args.seed)
+        bare = is_bare(fm, met, fleet_reqs, bare_reqs)
+        for run in runs:
+            print(json.dumps(run))
+        print(f"fleet: the 1-node fleet (no network, one class) is the bare "
+              f"replay on the same {met.total} requests: {bare}")
+        line["fleet"] = {"runs": runs, "bare_equal": bare,
+                         "sweep_share": SWEEP_SHARE,
+                         "node_max_scale": lam_node,
+                         "per_node_req_s": sum(per_node.values()),
+                         "interference": "off",
+                         "horizon_s": args.horizon_s}
+        ok = ok and bare and all(r["conserved"] and r["total"] > 0
+                                 for r in runs)
+    if args.replay or args.fluctuate or args.fleet:
         print(json.dumps(line))
     return 0 if ok else 1
 

@@ -180,7 +180,7 @@ def test_ideal_at_least_elastic():
     """``tests/test_schedulers.py::test_ideal_at_least_elastic`` through
     both packages: the same max scale of the exhaustive scheduler, at
     least elastic's."""
-    from repro.core.scenarios import REQUEST_SCENARIOS
+    from repro_torch.core.scenarios import REQUEST_SCENARIOS
     rates = REQUEST_SCENARIOS["equal"]
     lam_e = tcore.ElasticPartitioning(TPROFS, intf_model=TINTF).max_scale(
         rates)
@@ -340,7 +340,16 @@ COPIES = ("core/profiles.py", "core/latency.py", "core/gpulet.py",
           "simulator/events.py", "simulator/metrics.py",
           "serving/controller.py", "data/pipeline.py", "data/__init__.py",
           "simulator/engine.py", "simulator/trace.py", "obs/spans.py",
-          "obs/timeline.py", "core/hardware.py")
+          "obs/timeline.py", "core/hardware.py",
+          # the fleet layer
+          "core/scenarios.py", "faults/plan.py", "faults/health.py",
+          "faults/retry.py", "faults/brownout.py", "faults/__init__.py",
+          "obs/attribution.py", "obs/sampler.py", "obs/export.py",
+          "obs/validate.py", "obs/__init__.py", "fabric/network.py",
+          "fabric/priority.py", "fabric/node.py", "fabric/router.py",
+          "fabric/global_scheduler.py", "fabric/autoscaler.py",
+          "fabric/fabric.py", "fabric/workload.py", "fabric/__init__.py",
+          "simulator/cluster.py", "simulator/__init__.py")
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\b", re.M)
 
 
