@@ -24,7 +24,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    fp32, S 1000 and a ragged S), flash at hubert-xlarge's (Dh 80, not
    causal, S 1000, 512, 77) and internvl2-76b's (H64 / Hkv 8 at S 2024,
    its 1024 patches before a 1000-token prompt) and decode attention at
-   internvl2-76b's (a cache of 2056 slots), the SSD scan (bf16 and fp32 inputs, S
+   internvl2-76b's (a cache of 2056 slots), and both at command-r-35b's
+   (H64 / Hkv 8, S 1000, 1032 slots), the SSD scan (bf16 and fp32 inputs, S
    1000, 512 and the chunk edges 1, 63, 64, 65, with and without an
    initial state, B / C as slices of one projection) and the RG-LRU scan
    (the same, and S 4096);
@@ -32,13 +33,15 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    then times on the card (CUDA events, inputs rotated past the 50 MB L2)
    of each kernel, its plain version and, for attention, one PyTorch call
    as a yardstick (SDPA, never used by the port), beside the least time
-   the card could take (bound), and the time of each kernel (and for
+   the card could take (bound: each kernel module's ``cost``, the formula
+   the dry run prices it with), and the time of each kernel (and for
    attention SDPA's) with the host out of the way (``device_ms``); and the
    decode kernel's time by cache splits (the sweep behind ``split_plan``);
 4. model parity, fp32, one seed, the card (CUDA kernels) against the same
    weights on the CPU (plain versions), prefill logits and three decode
    steps, at full width: yi-9b, stablelm-12b, chatglm3-6b, mamba2-780m
-   and deepseek-moe-16b (2 layers) and recurrentgemma-2b (3 layers, one
+   deepseek-moe-16b and command-r-35b (2 layers) and recurrentgemma-2b (3
+   layers, one
    (rglru, rglru, attn) unit; also one 2100-token prompt, so that the
    2048-slot local ring wraps); hubert-xlarge (2 layers, one forward over
    1000 and 77 frames, no decode step) and internvl2-76b (2 layers, 1024
@@ -47,8 +50,9 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    CPU's, every differing decision printed with the CPU's probability gap
    there, and a difference at a gap above ``ROUTING_GAP`` fails;
 5. serve: ``repro_torch.serving.executor`` on yi-9b, mamba2-780m,
-   recurrentgemma-2b, stablelm-12b, chatglm3-6b, deepseek-moe-16b and
-   hubert-xlarge at full width and depth, and internvl2-76b at full width
+   recurrentgemma-2b, stablelm-12b, chatglm3-6b, deepseek-moe-16b,
+   hubert-xlarge and command-r-35b (64.8 GB of bf16 weights) at full width
+   and depth, and internvl2-76b at full width
    and 24 of its 80 layers (``LAYERS``: 141 GB of bf16 weights do not fit
    the card), bf16: 8 requests, batch 4, prompts of 512 and 1000 tokens
    (internvl2-76b's behind 1024 patch embeddings; hubert-xlarge's clips
@@ -57,7 +61,20 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    logits finite, and each kernel's launch count (set to 0 before each
    model's serve, read after it) exactly one per layer of its kind per
    prefill (or encoder forward) batch (flash, SSD scan, RG-LRU scan) or
-   per decode step (decode attention);
+   per decode step (decode attention); first the dry run
+   (``launch/dryrun.py --all``: every (arch x shape) step traced on the
+   ``meta`` device, started as a host process of its own after phase 1)
+   is read, checked (``done: 38 ok, 2 skipped, 0 failed``) and printed as
+   a table, and after each served model, on that model, each of its
+   combinations whose record fits the card (every decode step, the
+   cheapest prefill, the others within ``DRYRUN_BUDGET_S``) runs once at
+   the record's shapes, timed by CUDA events, and once under the profiler:
+   the bytes the arguments ask of the card's allocator must be the
+   record's (what it gives them is printed beside), the step's peak
+   (``max_memory_allocated``) within
+   ``DRYRUN_PEAK_TOL`` of the record's, the device busy time at least the
+   roofline's compute time, every logit finite, and each kernel launched
+   once per layer of its kind, as the record's calls;
 6. partitions (``repro_torch.launch``): each of the three carves of the
    card's SMs (green contexts) that realise the paper's five splits, with
    its granted SMs, proven disjoint by the ``%smid`` probe; the four
@@ -193,7 +210,8 @@ PARITY_REL = 1e-3  # model parity: max |card - cpu| <= 1e-3 * max |cpu|
 # where the CPU's probabilities of the two are within this of each other
 ROUTING_GAP = 1e-5
 SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b", "stablelm-12b",
-          "chatglm3-6b", "deepseek-moe-16b", "hubert-xlarge", "internvl2-76b")
+          "chatglm3-6b", "deepseek-moe-16b", "hubert-xlarge", "internvl2-76b",
+          "command-r-35b")
 # depth served where the full model does not fit the card (80 GB):
 # internvl2-76b's 80 layers are 141 GB of bf16 weights, 24 are 45.3 GB
 LAYERS = {"internvl2-76b": 24}
@@ -219,7 +237,16 @@ HEADS = {"yi-9b": Heads(32, 4, 128),
          "deepseek-moe-16b": Heads(16, 16, 128),
          "hubert-xlarge": Heads(16, 16, 80, causal=False, slots=None),
          "internvl2-76b": Heads(64, 8, 128, s=1024 + 1000,
-                                slots=1024 + 1000 + 32)}
+                                slots=1024 + 1000 + 32),
+         "command-r-35b": Heads(64, 8, 128)}
+# the dry run (``launch/dryrun.py --all``, host work in a process of its
+# own from phase 1 on): its records, and on the card (phase 5) each
+# combination that fits, within this wall time: every decode step, the
+# cheapest prefill, and the other prefills while their expected time
+# (``DRYRUN_SLOWDOWN`` x their roofline bound, two runs each) fits
+DRYRUN_OUT = Path(__file__).resolve().parent / "results/out/dryrun.jsonl"
+DRYRUN_BUDGET_S, DRYRUN_SLOWDOWN = 90.0, 3.0
+DRYRUN_PEAK_TOL = 0.10  # the card's peak within this share of the record's
 # the encoder's forward on the smallest partition (phase 6): its batch, and
 # the band around its committed L(b, 20%) outside which the run fails
 FORWARD_BATCH, FORWARD_BAND = 8, (0.5, 2.0)
@@ -379,19 +406,17 @@ def timed(fn, *args):
     return out
 
 
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+def bound_ms(cost: tuple[int, int], dtype) -> tuple[float, str]:
+    """The least time of a call on the card: the larger of its bytes over
+    the HBM rate and its operations over their type's peak.  ``cost`` is
+    (operations, bytes), from the kernel module's ``cost`` or ``bwd_cost``
+    (one definition of each kernel's work, which the dry run prices
+    too)."""
+    ops, nbytes = cost
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
-
-
-def live_pairs(s: int, causal: bool, window) -> int:
-    """Query-key pairs the mask lets through (the work this data needs)."""
-    q = np.arange(s)
-    hi = q + 1 if causal else np.full(s, s)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, int)
-    return int((hi - lo).sum())
 
 
 def record(name, path, shape, err, ms, plain_ms, bound, library_ms,
@@ -641,15 +666,15 @@ def phase_kernels() -> dict:
     kernels_scans(gen, errs)
 
     log("  times at the serving shapes (bf16 weights), card clock:")
-    dtype, item = torch.bfloat16, 2
+    dtype = torch.bfloat16
     records = {}
 
     # prefill attention: the serve's 1000-token batches of 4 (a VLM's
     # behind its patches)
     for path, (h, hkv, dh, window, causal, s, _) in HEADS.items():
         b = 4
-        nbytes = item * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
-        sets = copies(lambda: flash_inputs(b, h, hkv, s, dh, dtype), nbytes)
+        cost = fl.cost(b, h, hkv, s, dh, causal=causal, window=window)
+        sets = copies(lambda: flash_inputs(b, h, hkv, s, dh, dtype), cost[1])
         lib_sets = [(q, _repeat_kv(k.transpose(1, 2), h).transpose(1, 2),
                      _repeat_kv(v.transpose(1, 2), h).transpose(1, 2))
                     for q, k, v in sets]
@@ -668,9 +693,7 @@ def phase_kernels() -> dict:
             q, k, v, causal=causal, window=window), sets[:2], 5)
         sdpa_ms = time_ms(sdpa, lib_sets, 30)
         sdpa_dev = device_ms(sdpa, lib_sets, 30)
-        bound = bound_ms(nbytes,
-                         4 * dh * live_pairs(s, causal, window) * b * h,
-                         dtype)
+        bound = bound_ms(cost, dtype)
         records["flash_attention", path] = record(
             "flash_attention", path,
             f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} "
@@ -686,9 +709,9 @@ def phase_kernels() -> dict:
             continue  # an encoder: no decode step
         b = 4
         lens = [s] * b
-        nbytes = item * (2 * sum(lens) * hkv * dh + 2 * b * h * dh)
+        cost = dec.cost(b, h, hkv, dh, sum(lens))
         sets = copies(lambda: decode_inputs(b, h, hkv, s, dh, lens, dtype),
-                      nbytes)
+                      cost[1])
         lib_sets = [(q[:, :, None], _repeat_kv(kc, h).transpose(1, 2),
                      _repeat_kv(vc, h).transpose(1, 2))
                     for q, kc, vc, _ in sets]
@@ -702,7 +725,7 @@ def phase_kernels() -> dict:
             q, k, v), lib_sets, 200)
         sdpa_dev = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v), lib_sets, 200)
-        bound = bound_ms(nbytes, 4 * dh * h * sum(lens), dtype)
+        bound = bound_ms(cost, dtype)
         records["decode_attention", path] = record(
             "decode_attention", path,
             f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} lengths full "
@@ -716,18 +739,14 @@ def phase_kernels() -> dict:
 
     # SSD scan: mamba2's prefill, bf16 x / B / C, fp32 dt and state
     b, s, h, p, n = 4, 1000, 48, 64, 128
-    nbytes = (item * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
-              + 4 * (b * s * h * p + 2 * b * h * n * p))
+    cost = ssd.cost(b, s, h, p, n, with_h0=True)
     sets = copies(lambda: ssd_inputs(gen, b, s, h, p, n, dtype, True),
-                  nbytes)
+                  cost[1])
     ms = time_ms(ssd.ssd_scan_cuda, sets, 20)
     dev_ms = device_ms(ssd.ssd_scan_cuda, sets, 20)
     plain_ms = time_ms(ssd.ssd_scan_torch, sets[:2], 3)
-    # the chunked form's products on the tensor cores (bf16 operands): the
-    # gram C B^T (2 L N per position, shared by the heads), and per head
-    # M' x (2 L P), C H and the state update (2 N P each); chunks of L = 64
-    tc_ops = 2 * b * s * (64 * n + h * (64 * p + 2 * n * p))
-    bound = bound_ms(nbytes, tc_ops, torch.bfloat16)
+    # the chunked form's products on the tensor cores (bf16 operands)
+    bound = bound_ms(cost, torch.bfloat16)
     records["ssd_scan", "mamba2-780m"] = record(
         "ssd_scan", "mamba2-780m",
         f"bf16 x/B/C, fp32 dt/h0 B{b} S{s} H{h} P{p} N{n}", errs["ssd_scan"],
@@ -735,14 +754,12 @@ def phase_kernels() -> dict:
     records["ssd_scan", "mamba2-780m"]["device_ms"] = dev_ms
     del sets
     # the fp32 path (the parity kernel, CUDA cores) at the same shape: the
-    # recurrence's operations, decay and update, then C^T h, per element
-    # of every (position, head) state, in fp32
-    nbytes32 = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + h
-                    + 2 * b * h * n * p)
+    # recurrence's operations in fp32
+    cost32 = ssd.cost(b, s, h, p, n, dtype=torch.float32, with_h0=True)
     sets = copies(lambda: ssd_inputs(gen, b, s, h, p, n, torch.float32,
-                                     True), nbytes32)
+                                     True), cost32[1])
     fp32_ms = time_ms(ssd.ssd_scan_cuda, sets, 10)
-    fp32_bound = bound_ms(nbytes32, 4 * b * s * h * n * p, torch.float32)
+    fp32_bound = bound_ms(cost32, torch.float32)
     log(f"  ssd_scan fp32 path (parity kernel) [fp32 x/B/C B{b} S{s} H{h} "
         f"P{p} N{n}]: kernel {fp32_ms:.4f} ms, bound {fp32_bound[0]:.4f} "
         f"ms ({fp32_bound[1]}, fp32 on the CUDA cores)")
@@ -750,13 +767,13 @@ def phase_kernels() -> dict:
 
     # RG-LRU scan: recurrentgemma's prefill, fp32 a and b
     b, s, w = 4, 1000, 2560
-    nbytes = 4 * (3 * b * s * w + 2 * b * w)
+    cost = rg.cost(b, s, w, with_h0=True)
     sets = copies(lambda: rglru_inputs(gen, b, s, w, torch.float32, True),
-                  nbytes)
+                  cost[1])
     ms = time_ms(rg.rglru_scan_cuda, sets, 50)
     dev_ms = device_ms(rg.rglru_scan_cuda, sets, 50)
     plain_ms = time_ms(rg.rglru_scan_torch, sets[:2], 3)
-    bound = bound_ms(nbytes, 2 * b * s * w, torch.float32)
+    bound = bound_ms(cost, torch.float32)
     records["rglru_scan", "recurrentgemma-2b"] = record(
         "rglru_scan", "recurrentgemma-2b", f"fp32 B{b} S{s} W{w}",
         errs["rglru_scan"], ms, plain_ms, bound, None)
@@ -790,7 +807,7 @@ def split_sweep(decode_inputs):
             continue  # an encoder: no decode step
         for s in sorted({slots, 2048}):
             b = 4
-            nbytes = 2 * (2 * b * s * hkv * dh + 2 * b * h * dh)
+            nbytes = dec.cost(b, h, hkv, dh, b * s)[1]
             sets = copies(lambda: decode_inputs(b, h, hkv, s, dh, [s] * b,
                                                 torch.bfloat16), nbytes)
             plan = dec.split_plan(b, hkv, s, h // hkv)[0]
@@ -966,9 +983,12 @@ def phase_parity():
     parity("recurrentgemma-2b", 3, [(2, 77), (1, 2100)])
     parity("hubert-xlarge", 2, [(2, 1000), (1, 77)])
     parity("internvl2-76b", 2, [(2, 77)])
+    parity("command-r-35b", 2, [(2, 77)])
 
 
-def serve_one(arch: str, records: dict):
+def serve_one(arch: str, records: dict, combos: list, rows: list):
+    """Serve ``arch``, then run its dry-run ``combos`` on the same model
+    (``dryrun_on_card``), each a row of ``rows``."""
     from repro_torch.configs import get_config
     from repro_torch.serving import executor
 
@@ -979,11 +999,16 @@ def serve_one(arch: str, records: dict):
         + (f" of {get_config(arch).n_layers}" if layers else "") + "):")
     mods = counters()
     torch.cuda.reset_peak_memory_stats()
+    before = cuda_bytes()
+    model = executor.build_model(arch, seed=0, device="cuda", smoke=False,
+                                 n_layers=layers)
+    param_bytes = tuple(a - b for a, b in zip(cuda_bytes(), before))
     for m in mods.values():
         m.launches = 0
-    rep = executor.serve(arch, requests=8, batch=4, prompt_lens=(512, 1000),
-                         output_len=32, seed=0, device="cuda",
-                         n_layers=layers)
+    rep = executor.serve_model(
+        model, requests=8, batch=4, prompt_lens=(512, 1000), output_len=32,
+        seed=0, reduced=executor.depth_reduction(arch, layers, "cuda",
+                                                 smoke=False))
     counts = {k: m.launches for k, m in mods.items()}
     # a clip is answered with a label per frame, a prompt with 32 tokens
     lengths = ([512, 1000] * 4 if rep.encoder else [32] * 8)
@@ -1020,17 +1045,235 @@ def serve_one(arch: str, records: dict):
     log(f"    request 0 tokens: {rep.results[0].tokens[:8]} ...")
     del rep
     torch.cuda.empty_cache()
+    for rec in combos:
+        rows.append(dryrun_on_card(model, rec, param_bytes))
+    del model
+    torch.cuda.empty_cache()
 
 
-def phase_serve(records: dict):
+def phase_serve(records: dict, dry: subprocess.Popen):
     log("[5] serve at full width (bf16), 8 requests, batch 4, prompts "
         "512/1000 (internvl2-76b's behind 1024 patches; hubert-xlarge's "
-        "clips of 512/1000 frames), 32 output tokens")
+        "clips of 512/1000 frames), 32 output tokens; after each model, "
+        "the dry run's combinations of it that fit the card")
+    plan = plan_dryrun(finish_dryrun(dry))
+    rows = []
+    t0 = time.perf_counter()
     for arch in SERVED:
-        serve_one(arch, records)
+        serve_one(arch, records, plan.pop(arch, []), rows)
+    if plan:
+        raise AssertionError(f"combinations of models not served: {plan}")
     missing = [k for k, r in records.items() if "launches" not in r]
     if missing:
         raise AssertionError(f"no served path launched {missing}")
+    spent = sum(r["wall_s"] for r in rows)
+    log(f"  the dry run on the card: {len(rows)} combinations in "
+        f"{spent:.1f} s of this phase's {time.perf_counter() - t0:.1f} s:")
+    log("    arch x shape: arguments predicted / asked / allocated on the "
+        "card (GB), peak predicted / allocated on the card (GB), step ms "
+        "(CUDA events), device busy ms vs the roofline's compute and memory "
+        "ms, kernel launches")
+    for r in rows:
+        log(f"    {r['arch']} x {r['shape']}: {r['args_pred'] / 1e9:.3f} / "
+            f"{r['args_asked'] / 1e9:.3f} / {r['args_card'] / 1e9:.3f}, "
+            f"{r['peak_pred'] / 1e9:.3f} / "
+            f"{r['peak_card'] / 1e9:.3f}, {r['ms']:.2f} ms, busy "
+            f"{r['busy_ms']:.2f} ms vs {r['compute_ms']:.3f} / "
+            f"{r['memory_ms']:.3f} ms, {r['launches']}")
+
+
+# ------------------------------------------------------------- dry run ----
+
+
+def start_dryrun() -> subprocess.Popen:
+    """``python -m repro_torch.launch.dryrun --all`` into ``DRYRUN_OUT``, in
+    a process of its own that never touches the card (host work: about a
+    minute of one core), started before the card's first phase."""
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    return start_host("repro_torch.launch.dryrun", "--all", "--out",
+                      str(DRYRUN_OUT))
+
+
+def finish_dryrun(proc: subprocess.Popen) -> list:
+    """Waits for the sweep, checks it (exit 0, ``done: 38 ok, 2 skipped,
+    0 failed``, 40 records) and prints its records as a table."""
+    rc = proc.wait()
+    proc.out.seek(0)
+    lines = proc.out.read().splitlines()
+    proc.out.close()
+    recs = [json.loads(line) for line in DRYRUN_OUT.read_text().splitlines()]
+    if rc or not lines or lines[-1] != "done: 38 ok, 2 skipped, 0 failed" \
+            or len(recs) != 40:
+        raise AssertionError(f"the dry run exited {rc}: {lines[-5:]}")
+    log(f"  the dry run (launch/dryrun.py --all, meta device, host): "
+        f"{lines[-1]}; by arch x shape: step, arguments (params + cache + "
+        "batch (+ AdamW)), temps, outputs, peak (decimal GB), fits one card "
+        "(80 GB), FLOPs, eager bytes, roofline compute / memory s, trace s")
+    for r in recs:
+        if r["status"] != "ok":
+            log(f"    {r['arch']} x {r['shape']}: {r['status']} "
+                f"({r['reason']})")
+            continue
+        m, roof = r["memory"], r["roofline"]
+        log(f"    {r['arch']} x {r['shape']}: {r['step_kind']}, "
+            f"{m['argument_size_in_bytes'] / 1e9:.1f} ("
+            + " + ".join(f"{v / 1e9:.1f}" for v in
+                         r["argument_bytes"].values())
+            + f"), {m['temp_size_in_bytes'] / 1e9:.1f}, "
+            f"{m['output_size_in_bytes'] / 1e9:.2f}, "
+            f"{m['peak_bytes'] / 1e9:.1f}, {r['fits_one_card']}, "
+            f"{r['flops']:.3g}, {r['bytes']:.3g}, {roof['compute_s']:.4g} / "
+            f"{roof['memory_s']:.4g}, {r['trace_s']}")
+    return recs
+
+
+def plan_dryrun(recs: list) -> dict:
+    """arch -> the records to run on the card: every combination that fits
+    one card, a prefill only within ``DRYRUN_BUDGET_S`` (the cheapest
+    always); those left out are logged."""
+    fit = [r for r in recs if r["status"] == "ok" and r["fits_one_card"]]
+
+    def expected_s(r):
+        roof = r["roofline"]
+        return 2 * DRYRUN_SLOWDOWN * max(roof["compute_s"], roof["memory_s"])
+
+    chosen = [r for r in fit if r["step_kind"] == "decode"]
+    left = DRYRUN_BUDGET_S - sum(expected_s(r) for r in chosen)
+    for i, r in enumerate(sorted((r for r in fit
+                                  if r["step_kind"] != "decode"),
+                                 key=expected_s)):
+        if i == 0 or expected_s(r) <= left:
+            chosen.append(r)
+            left -= expected_s(r)
+        else:
+            log(f"  not run on the card: {r['arch']} x {r['shape']} (fits; "
+                f"expected {expected_s(r):.0f} s, {max(left, 0):.0f} s of "
+                f"the {DRYRUN_BUDGET_S:.0f} s left)")
+    log("  to run on the card: " + ", ".join(
+        f"{r['arch']} x {r['shape']}" for r in chosen))
+    plan: dict = {}
+    for r in chosen:
+        plan.setdefault(r["arch"], []).append(r)
+    return plan
+
+
+def cuda_bytes() -> tuple[int, int]:
+    """(bytes the tensors on the card asked for, bytes the caching
+    allocator gave them): ``requested_bytes`` and ``allocated_bytes``.
+    The allocator rounds a request up to 512 B, and gives a large one the
+    whole block (up to 1 MiB more) where the rest is too small to split."""
+    st = torch.cuda.memory_stats()
+    return (st["requested_bytes.all.current"],
+            st["allocated_bytes.all.current"])
+
+
+def dryrun_on_card(model, rec: dict, param_bytes: tuple) -> dict:
+    """One dry-run combination on the card, on the served model (its
+    parameters took ``param_bytes``, ``cuda_bytes``'s pair): its arguments
+    at the record's shapes (zeros: ``launch/specs.py``), the step once
+    timed by CUDA events, then once traced by the profiler.  Fails unless
+    the bytes the arguments asked the allocator for are the record's, the
+    allocated peak (``max_memory_allocated``) within ``DRYRUN_PEAK_TOL`` of
+    the record's, the device busy time at least the roofline's compute
+    time, every logit finite and each kernel launched once per layer of
+    its kind, as the record's calls."""
+    from torch.profiler import ProfilerActivity
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.serving.profile import traced
+
+    cfg, shape = model.cfg, rec["shape"]
+
+    def fresh():
+        """(kind, step, arguments) on new arguments at the record's
+        shapes."""
+        kind, args = specs.input_specs(cfg, shape, model=model)
+        return (kind, *dryrun.build_step(
+            model, kind, args, specs.INPUT_SHAPES[shape]["seq_len"]))
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = cuda_bytes()
+    kind, step, arguments = fresh()
+    asked, args_card = (p + a - b for p, a, b in zip(param_bytes,
+                                                     cuda_bytes(), base))
+    n_tensors = len({t.untyped_storage().data_ptr() for t in
+                     tree_leaves(arguments) if isinstance(t, torch.Tensor)})
+    del arguments
+    mem = rec["memory"]
+    args_pred, peak_pred = mem["argument_size_in_bytes"], mem["peak_bytes"]
+    mods = counters()
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = step()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak_card = (torch.cuda.max_memory_allocated() - base[1]
+                 + param_bytes[1])
+    counts = {k: m.launches for k, m in mods.items()}
+    logits = out[0] if isinstance(out, tuple) else out
+    finite = bool(torch.isfinite(logits).all())
+    # the second run gets new arguments, allocated as the first's were:
+    # the states the first step wrote sit in the blocks it freed, where
+    # they split the large ones its second step would ask for again
+    del out, logits, step
+    torch.cuda.empty_cache()
+    _, step, arguments = fresh()
+    del arguments
+    prof = traced(f"{rec['arch']} x {shape}", 1, step,
+                  [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  torch.device("cuda"), None)
+    torch.cuda.synchronize()
+    del step
+    torch.cuda.empty_cache()
+    busy = prof["device_busy_ms_per_step"]
+    if isinstance(busy, str):
+        raise AssertionError(f"{rec['arch']} x {shape}: the profiler saw "
+                             f"no device time in the step ({busy})")
+    roof = rec["roofline"]
+    row = dict(arch=rec["arch"], shape=shape, args_pred=args_pred,
+               args_asked=asked, args_card=args_card, peak_pred=peak_pred,
+               peak_card=peak_card,
+               ms=ms, busy_ms=busy,
+               compute_ms=roof["compute_s"] * 1e3,
+               memory_ms=roof["memory_s"] * 1e3,
+               launches={k: v for k, v in counts.items() if v},
+               wall_s=time.perf_counter() - t0)
+    steps = (0, 1) if kind == "decode" else (1, 0)
+    want = expected_launches(cfg, *steps)
+    calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+    log(f"    dry run {rec['arch']} x {shape} ({kind}): arguments "
+        f"{asked} bytes asked of the card's allocator, {args_card} given "
+        f"({n_tensors} tensors), record {args_pred}; peak {peak_card} "
+        f"bytes allocated, record {peak_pred} "
+        f"({peak_card / peak_pred - 1:+.2%}); {ms:.2f} ms, device busy "
+        f"{row['busy_ms']:.2f} ms, roofline compute {row['compute_ms']:.3f} "
+        f"ms / memory {row['memory_ms']:.3f} ms; launches {counts}, the "
+        f"record's calls {calls}; {row['wall_s']:.1f} s")
+    if asked != args_pred or args_card < asked:
+        raise AssertionError(f"{rec['arch']} x {shape}: the arguments asked "
+                             f"for {asked} bytes on the card ({args_card} "
+                             f"given), the record says {args_pred}")
+    if not abs(peak_card - peak_pred) <= DRYRUN_PEAK_TOL * peak_pred:
+        raise AssertionError(f"{rec['arch']} x {shape}: peak {peak_card} "
+                             f"bytes on the card, {peak_pred} predicted")
+    if not row["busy_ms"] >= row["compute_ms"]:
+        raise AssertionError(f"{rec['arch']} x {shape}: busy "
+                             f"{row['busy_ms']} ms under the roofline's "
+                             "compute time: the FLOPs are overcounted")
+    if not finite:
+        raise AssertionError(f"{rec['arch']} x {shape}: non-finite logits")
+    if counts != want or row["launches"] != calls:
+        raise AssertionError(f"{rec['arch']} x {shape}: launches {counts}, "
+                             f"expected {want}, the record's {calls}")
+    return row
 
 
 # ------------------------------------------------------- partitions ----
@@ -1091,8 +1334,7 @@ def kernels_on_partition(part, records: dict, errs: dict):
             fl.flash_attention_torch(q, k, v, **mask), dtype))
         sets = copies(lambda: tuple(
             _randn(gen, b, s, n, dh, dtype=dtype).transpose(1, 2)
-            for n in (h, hkv, hkv)), 2 * (2 * b * h * s * dh
-                                          + 2 * b * hkv * s * dh))
+            for n in (h, hkv, hkv)), fl.cost(b, h, hkv, s, dh, **mask)[1])
         records["flash_attention", path]["partition_ms"] = time_on_part(
             lambda q, k, v: fl.flash_attention_cuda(q, k, v, **mask),
             sets, 30)
@@ -1115,7 +1357,7 @@ def kernels_on_partition(part, records: dict, errs: dict):
             _randn(gen, b, h, dh, dtype=dtype),
             _randn(gen, b, s, hkv, dh, dtype=dtype),
             _randn(gen, b, s, hkv, dh, dtype=dtype), full),
-            2 * (2 * b * s * hkv * dh + 2 * b * h * dh))
+            dec.cost(b, h, hkv, dh, b * s)[1])
         records["decode_attention", path]["partition_ms"] = time_on_part(
             lambda *a: dec.decode_attention_cuda(*a, window=window),
             sets, 200)
@@ -1151,8 +1393,7 @@ def kernels_on_partition(part, records: dict, errs: dict):
                      SSD_TOL))
     b, s, h, p, n = 4, 1000, 48, 64, 128
     sets = copies(lambda: ssd_inputs(gen, b, s, h, p, n, dtype, True),
-                  2 * (b * s * h * p + 2 * b * s * n)
-                  + 4 * (2 * b * s * h * p + 2 * b * h * n * p))
+                  ssd.cost(b, s, h, p, n, with_h0=True)[1])
     records["ssd_scan", "mamba2-780m"]["partition_ms"] = time_on_part(
         ssd.ssd_scan_cuda, sets, 20)
     del sets
@@ -1167,7 +1408,7 @@ def kernels_on_partition(part, records: dict, errs: dict):
             _check(f"rglru_scan {tag} B4 S{s} h_last", hl, hl_ref,
                    RGLRU_TOL, RGLRU_TOL, 1.0))
     sets = copies(lambda: rglru_inputs(gen, 4, 1000, 2560, torch.float32,
-                                       True), 4 * (3 * 4 * 1000 * 2560))
+                                       True), rg.cost(4, 1000, 2560)[1])
     records["rglru_scan", "recurrentgemma-2b"]["partition_ms"] = \
         time_on_part(rg.rglru_scan_cuda, sets, 50)
     del sets
@@ -1471,17 +1712,21 @@ def check_committed_replay(result: dict):
 
 def start_serve(*args: str) -> subprocess.Popen:
     """``python -m repro_torch.launch.serve *args`` in a process of its
-    own that never touches the card, its standard output to an unnamed
-    file.  The schedulers' work in phases 6 and 7 reads only a table and
-    takes about a minute of one host core each, so it runs beside the
-    card's later phases instead of before them."""
+    own (``start_host``).  The schedulers' work in phases 6 and 7 reads
+    only a table and takes about a minute of one host core each, so it
+    runs beside the card's later phases instead of before them."""
+    return start_host("repro_torch.launch.serve", *args)
+
+
+def start_host(module: str, *args: str) -> subprocess.Popen:
+    """``python -m module *args`` in a process of its own that never
+    touches the card, its standard output to an unnamed file."""
     out = tempfile.TemporaryFile(mode="w+")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", *args],
-        stdout=out, env=env, cwd=ROOT, text=True)
+    proc = subprocess.Popen([sys.executable, "-m", module, *args],
+                            stdout=out, env=env, cwd=ROOT, text=True)
     proc.out = out
     return proc
 
@@ -1725,15 +1970,13 @@ def times_flash_train(gen, records):
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.models.layers import _repeat_kv
     b, h, hkv, s, dh, window = 4, 10, 1, TRAIN_SEQ, 256, 2048
-    dtype, item = torch.bfloat16, 2
-    pairs = live_pairs(s, True, window) * b * h
-    n_q, n_kv = b * h * s * dh, b * hkv * s * dh
-    fwd_bytes = item * (2 * n_q + 2 * n_kv)
+    dtype = torch.bfloat16
+    fwd_cost = fl.cost(b, h, hkv, s, dh, window=window)
     # q, dO, k, v read; dq, dk, dv written (O is not read)
-    bwd_bytes = item * (3 * n_q + 4 * n_kv)
+    bwd_cost = fl.bwd_cost(b, h, hkv, s, dh, window=window)
 
     sets = copies(lambda: flash_grad_inputs(gen, b, h, hkv, s, dh, dtype),
-                  bwd_bytes)
+                  bwd_cost[1])
     shape = f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} causal window={window}"
 
     def kernel_fwd(q, k, v, do):
@@ -1805,8 +2048,8 @@ def times_flash_train(gen, records):
         lambda st: st[:3], lib_sets)
     sdpa_bwd_ms = time_ms(backward_only, sdpa_graphs, 10)
     del sdpa_graphs, lib_sets
-    fwd_bound = bound_ms(fwd_bytes, 4 * dh * pairs, dtype)
-    bwd_bound = bound_ms(bwd_bytes, 10 * dh * pairs, dtype)
+    fwd_bound = bound_ms(fwd_cost, dtype)
+    bwd_bound = bound_ms(bwd_cost, dtype)
     records["flash_attention", TRAIN_PATH] = record(
         "flash_attention", TRAIN_PATH, shape, fwd_err, ms_fwd, plain_fwd_ms,
         fwd_bound, sdpa_fwd_ms)
@@ -1818,7 +2061,7 @@ def times_flash_train(gen, records):
         f"(bound {fwd_bound[0]:.4f}, {fwd_bound[1]}; plain "
         f"{plain_fwd_ms:.4f} ms, SDPA {sdpa_fwd_ms:.4f} ms); backward "
         f"{ms_bwd:.4f} ms (bound {bwd_bound[0]:.4f}, {bwd_bound[1]}: 10 Dh "
-        f"operations a live pair, {10 * dh * pairs:.3g}; {bwd_bytes:.3g} "
+        f"operations a live pair, {bwd_cost[0]:.3g}; {bwd_cost[1]:.3g} "
         f"bytes); forward + backward: kernels {ms_both:.4f} ms, plain "
         f"{plain_both_ms:.4f} ms, SDPA {sdpa_both_ms:.4f} ms; backward "
         f"alone: plain {plain_bwd_ms:.4f} ms, SDPA {sdpa_bwd_ms:.4f} ms, "
@@ -1833,7 +2076,6 @@ def times_rglru_train(gen, records):
     plain recurrence, a loop of S steps, on one set and few calls)."""
     from repro_torch.kernels import rglru_scan as rg
     b, s, w = 4, TRAIN_SEQ, 2560
-    elems = b * s * w
 
     def make():
         a, bb, _ = rglru_inputs(gen, b, s, w, torch.float32, False)
@@ -1842,8 +2084,8 @@ def times_rglru_train(gen, records):
                 _randn(gen, b, w, dtype=torch.float32))
 
     # backward: a, h_seq and g read, da and db written (+ the (B, W) rows)
-    bwd_bytes = 4 * (5 * elems + 3 * b * w)
-    sets = copies(make, bwd_bytes)
+    fwd_cost, bwd_cost = rg.cost(b, s, w), rg.bwd_cost(b, s, w)
+    sets = copies(make, bwd_cost[1])
     shape = f"fp32 B{b} S{s} W{w}"
 
     def kernel_fwd(a, bb, *_):
@@ -1881,8 +2123,8 @@ def times_rglru_train(gen, records):
     plain_fwd_ms = time_ms(plain_fwd, sets[:1], 1)
     plain_bwd_ms = time_ms(plain_bwd, sets[:1], 1)
     plain_both_ms = time_ms(plain_both, sets[:1], 1)
-    fwd_bound = bound_ms(4 * 3 * elems, 2 * elems, torch.float32)
-    bwd_bound = bound_ms(bwd_bytes, 4 * elems, torch.float32)
+    fwd_bound = bound_ms(fwd_cost, torch.float32)
+    bwd_bound = bound_ms(bwd_cost, torch.float32)
     records["rglru_scan", TRAIN_PATH] = record(
         "rglru_scan", TRAIN_PATH, shape, fwd_err, ms_fwd, plain_fwd_ms,
         fwd_bound, None)
@@ -1909,28 +2151,17 @@ def times_ssd_train(gen, records):
     the scan, so there is no library time."""
     from repro_torch.kernels import ssd_scan as ssd
     b, s, h, p, n = TRAIN_BATCH, TRAIN_SEQ, 48, 64, 128
-    dtype, item = torch.bfloat16, 2
-    x_el, bc_el, dt_el = b * s * h * p, 2 * b * s * n, b * s * h
+    dtype = torch.bfloat16
 
     def make():
         return (*ssd_inputs(gen, b, s, h, p, n, dtype, False)[:5],
                 _randn(gen, b, s, h, p, dtype=torch.float32))
 
     # forward: x, B, C, dt and a read, y and h_final written; backward: the
-    # same inputs and the fp32 dy read, dx, dB, dC (bf16), ddt, da written
-    fwd_bytes = (item * (x_el + bc_el) + 4 * (dt_el + h)
-                 + 4 * (x_el + b * h * n * p))
-    bwd_bytes = 2 * item * (x_el + bc_el) + 2 * 4 * (dt_el + h) + 4 * x_el
-    # the chunked products (chunks of L = 64), as the forward's bound counts
-    # them: forward the gram (2 L N a position, shared by the heads) and per
-    # head M' x (2 L P), C H and the state update (2 N P each); backward
-    # the gram, per head dM and M^T dy (2 L P each), dG B and dG^T C (2 L N
-    # each), and six products of 2 N P (C H, B dH, dy H^T, u dH^T, C^T dy,
-    # the recomputed state update)
-    fwd_ops = 2 * b * s * (64 * n + h * (64 * p + 2 * n * p))
-    bwd_ops = 2 * b * s * (64 * n + h * (2 * 64 * p + 2 * 64 * n
-                                         + 6 * n * p))
-    sets = copies(make, bwd_bytes)
+    # same inputs and the fp32 dy read, dx, dB, dC (bf16), ddt, da written;
+    # the chunked products as ``ssd_scan.cost`` / ``bwd_cost`` count them
+    fwd_cost, bwd_cost = ssd.cost(b, s, h, p, n), ssd.bwd_cost(b, s, h, p, n)
+    sets = copies(make, bwd_cost[1])
     shape = f"bf16 x/B/C, fp32 dt B{b} S{s} H{h} P{p} N{n}, no h0"
 
     def kernel_fwd(x, dt, a, bm, cm, dy):
@@ -1980,8 +2211,8 @@ def times_ssd_train(gen, records):
         graphs.append((ssd.ssd_scan_torch(*leaves)[0], leaves, st[5]))
     plain_bwd_ms = time_ms(backward_only, graphs, 3)
     del graphs
-    fwd_bound = bound_ms(fwd_bytes, fwd_ops, dtype)
-    bwd_bound = bound_ms(bwd_bytes, bwd_ops, dtype)
+    fwd_bound = bound_ms(fwd_cost, dtype)
+    bwd_bound = bound_ms(bwd_cost, dtype)
     records["ssd_scan", SSM_PATH] = record(
         "ssd_scan", SSM_PATH, shape, fwd_err, ms_fwd, plain_fwd_ms,
         fwd_bound, None)
@@ -1991,8 +2222,8 @@ def times_ssd_train(gen, records):
     log(f"  ssd at the training shape [{shape}]: forward {ms_fwd:.4f} ms "
         f"(bound {fwd_bound[0]:.4f}, {fwd_bound[1]}; plain "
         f"{plain_fwd_ms:.4f} ms), backward {ms_bwd:.4f} ms (bound "
-        f"{bwd_bound[0]:.4f}, {bwd_bound[1]}: {bwd_bytes:.3g} bytes, "
-        f"{bwd_ops:.3g} operations; the CUDA-core version "
+        f"{bwd_bound[0]:.4f}, {bwd_bound[1]}: {bwd_cost[1]:.3g} bytes, "
+        f"{bwd_cost[0]:.3g} operations; the CUDA-core version "
         f"{SSD_CUDA_CORE_BWD_MS} ms); forward + backward: kernels "
         f"{ms_both:.4f} ms, plain {plain_both_ms:.4f} ms; backward alone: "
         f"plain {plain_bwd_ms:.4f} ms")
@@ -2276,14 +2507,16 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     device = phase_device()
-    timed(phase_build)
-    records = timed(phase_kernels)
-    timed(phase_parity)
-    timed(phase_serve, records)
+    # the dry run's sweep, host work beside phases 2-4, read in phase 5;
     # the schedulers' processes: phase 7's on the committed tables from
-    # here, phase 6's on this run's grid from the grid's end
-    procs = {"committed": start_serve(*COMMITTED_REPLAY)}
+    # phase 6 on, phase 6's on this run's grid from the grid's end
+    procs = {"dryrun": start_dryrun()}
     try:
+        timed(phase_build)
+        records = timed(phase_kernels)
+        timed(phase_parity)
+        timed(phase_serve, records, procs["dryrun"])
+        procs["committed"] = start_serve(*COMMITTED_REPLAY)
         grid = timed(phase_partitions, records, procs)
         timed(phase_interference, records, grid)
         timed(phase_train, records)

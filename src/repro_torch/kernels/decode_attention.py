@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pricing
 
 launches = 0  # launches of the CUDA kernel (plain calls not counted)
 
@@ -87,6 +87,30 @@ def decode_attention_torch(q, k_cache, v_cache, lengths, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", probs, v_cache.float())
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def cost(b: int, h: int, hkv: int, dh: int, valid_slots: int, *,
+         itemsize: int = 2) -> tuple[int, int]:
+    """(operations, bytes) of one call over ``valid_slots`` valid cache
+    slots in all (the sum over the batch rows): 4 Dh operations per query
+    head and valid slot (q k and p v), the valid keys and values read once
+    (each KV head's once, for its whole group) and q read, o written."""
+    return (4 * dh * h * valid_slots,
+            itemsize * (2 * valid_slots * hkv * dh + 2 * b * h * dh))
+
+
+def decode_attention_meta(q, k_cache, v_cache, lengths, *,
+                          window: int | None = None):
+    """The meta route (``kernels/pricing.py``): the kernel's output,
+    computed by nothing, and its cost charged.  A meta ``lengths`` holds no
+    values, so every row is priced with every slot valid (``window`` of
+    them at most): a full cache, as the dry run's decode steps have it."""
+    b, h, dh = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    per_row = min(s, window) if window else s
+    pricing.charge("decode_attention", cost(b, h, hkv, dh, b * per_row,
+                                            itemsize=q.element_size()))
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 def _check(q, k_cache, v_cache, lengths, window):
@@ -251,3 +275,8 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
         _build.check(lib, err, "decode_attention")
     launches += 1
     return o
+
+
+# device type -> the entry a call takes (``kernels/ops.py``)
+FORWARD = {"cpu": pricing.plain(decode_attention_torch),
+           "meta": decode_attention_meta, "cuda": decode_attention_cuda}

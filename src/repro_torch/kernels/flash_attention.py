@@ -59,9 +59,10 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pricing
 
 launches = 0  # launches of the CUDA kernel (plain-version calls not counted)
 bwd_launches = 0  # calls of the backward kernels' entry, one per backward
@@ -103,6 +104,48 @@ def flash_attention_torch(q, k, v, *, causal: bool = True,
     probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.to(inner))
     return out.reshape(b, h, s, dh).to(q.dtype)
+
+
+def live_pairs(s: int, causal: bool, window) -> int:
+    """Query-key pairs the mask lets through, per (row, head): the work
+    this shape needs."""
+    q = np.arange(s)
+    hi = q + 1 if causal else np.full(s, s)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, int)
+    return int((hi - lo).sum())
+
+
+def cost(b: int, h: int, hkv: int, s: int, dh: int, *, causal: bool = True,
+         window: int | None = None, itemsize: int = 2) -> tuple[int, int]:
+    """(operations, bytes) of one forward call: 4 Dh operations per live
+    query-key pair and query head (Q K^T and P V, a multiply-add each), and
+    q, k, v read once, o written once."""
+    ops = 4 * dh * live_pairs(s, causal, window) * b * h
+    return ops, itemsize * (2 * b * h * s * dh + 2 * b * hkv * s * dh)
+
+
+def bwd_cost(b: int, h: int, hkv: int, s: int, dh: int, *,
+             causal: bool = True, window: int | None = None,
+             itemsize: int = 2) -> tuple[int, int]:
+    """(operations, bytes) of one backward call: the least work, 10 Dh
+    operations per live pair and query head (S, dP, dV, dK, dQ); q, dO, k,
+    v read once, dq, dk, dv written once (o is not read)."""
+    ops = 10 * dh * live_pairs(s, causal, window) * b * h
+    return ops, itemsize * (3 * b * h * s * dh + 4 * b * hkv * s * dh)
+
+
+def _cost_of(q, k, causal, window, of=cost):
+    b, h, s, dh = q.shape
+    return of(b, h, k.shape[1], s, dh, causal=causal, window=window,
+              itemsize=q.element_size())
+
+
+def flash_attention_meta(q, k, v, *, causal: bool = True,
+                         window: int | None = None):
+    """The meta route (``kernels/pricing.py``): the kernel's output,
+    computed by nothing, and its cost charged."""
+    pricing.charge("flash_attention", _cost_of(q, k, causal, window))
+    return torch.empty_like(q)
 
 
 def _check(q, k, v, window):
@@ -340,20 +383,44 @@ def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
     return dq, dk, dv
 
 
+def flash_attention_bwd_meta(q, k, v, do, *, causal: bool = True,
+                             window: int | None = None):
+    """The backward's meta route: the gradients and the scratch the CUDA
+    wrapper allocates, computed by nothing, and its cost charged."""
+    pricing.charge("flash_attention_backward",
+                   _cost_of(q, k, causal, window, bwd_cost))
+    if not _aligned16(do):  # a meta tensor's base address is 0
+        do = do.contiguous()
+    b, h, s, dh = q.shape
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    n_stats = b * h * s
+    n_part = 2 * n_stats * dh if h > k.shape[1] else 0
+    torch.empty(2 * n_stats + n_part, dtype=torch.float32, device=q.device)
+    return grads
+
+
+# device type -> the forward and the backward (``kernels/ops.py``); a CPU
+# tensor is differentiated by autograd through the plain version
+FORWARD = {"cpu": pricing.plain(flash_attention_torch),
+           "meta": flash_attention_meta, "cuda": flash_attention_cuda}
+BACKWARD = {"meta": flash_attention_bwd_meta,
+            "cuda": flash_attention_bwd_cuda}
+
+
 class FlashAttention(torch.autograd.Function):
     """The forward kernel with the backward kernels as its gradient (CUDA
-    tensors).  Saves q, k and v; the backward recomputes the rest."""
+    tensors; ``meta`` tensors take the meta route of both).  Saves q, k and
+    v; the backward recomputes the rest."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return FORWARD[q.device.type](q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, do,
-                                              causal=ctx.causal,
-                                              window=ctx.window)
+        dq, dk, dv = BACKWARD[q.device.type](q, k, v, do, causal=ctx.causal,
+                                             window=ctx.window)
         return dq, dk, dv, None, None

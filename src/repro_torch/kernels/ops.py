@@ -3,17 +3,26 @@
 The JAX package selects a backend with ``impl``; the port selects it from
 the tensor's device.  A CPU tensor runs the plain PyTorch version; a CUDA
 tensor launches the hand-written kernel, and a build or launch failure
-raises (no fallback).  Any other device raises.
+raises (no fallback).  A ``meta`` tensor is priced, not computed: its
+outputs have the kernel's shapes and dtypes, the kernel's scratch is
+allocated on ``meta`` too, and the launch's operations and bytes (the
+kernel module's ``cost``) go to an open ``pricing.pricing()`` ledger
+(``kernels/pricing.py``; the dry run, ``launch/dryrun.py``).  Nothing on
+the main path is on ``meta``: the executor, the trainer and the profilers
+build on the card unless told the CPU.  Any other device raises.
 
 Gradients: when grad mode is on and an input requires grad, a CUDA
-tensor's ``flash_attention``, ``ssd_scan`` and ``rglru_scan`` go through
-a ``torch.autograd.Function`` whose backward is a kernel as well
-(``FlashAttention``, ``SSDScan``, ``RGLRUScan``).  ``ssd_scan`` and
-``rglru_scan`` take their Function on the CPU too (the backward kernel's
-algorithm through the plain versions: ``ssd_scan_bwd_chunks``, the
-reverse scan), and a CPU ``flash_attention`` is differentiated by
-autograd through its plain version.  Without grad the route is the one
-above.
+(or ``meta``) tensor's ``flash_attention``, ``ssd_scan`` and
+``rglru_scan`` go through a ``torch.autograd.Function`` whose backward is
+a kernel as well (``FlashAttention``, ``SSDScan``, ``RGLRUScan``).
+``ssd_scan`` and ``rglru_scan`` take their Function on the CPU too (the
+backward kernel's algorithm through the plain versions:
+``ssd_scan_bwd_chunks``, the reverse scan), and a CPU ``flash_attention``
+is differentiated by autograd through its plain version.  Without grad
+the route is the one above.  Each kernel module's ``FORWARD`` and
+``BACKWARD`` map a device type to its entry; its CPU entries run inside
+``pricing.plain``, so the dry run's counters skip what a plain version
+does.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _route(t, name: str) -> str:
-    if t.device.type in ("cpu", "cuda"):
+    if t.device.type in ("cpu", "cuda", "meta"):
         return t.device.type
     raise ValueError(f"{name}: no implementation for device {t.device}")
 
@@ -39,12 +48,10 @@ def _wants_grad(*tensors) -> bool:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """q: (B, H, S, Dh); k/v: (B, Hkv, S, Dh).  Returns (B, H, S, Dh)."""
-    if _route(q, "flash_attention") == "cpu":
-        return _flash.flash_attention_torch(q, k, v, causal=causal,
-                                            window=window)
-    if _wants_grad(q, k, v):
+    route = _route(q, "flash_attention")
+    if route != "cpu" and _wants_grad(q, k, v):
         return _flash.FlashAttention.apply(q, k, v, causal, window)
-    return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return _flash.FORWARD[route](q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
@@ -52,11 +59,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     """q: (B, H, Dh); caches: (B, S, Hkv, Dh); lengths: (B,) int32.
 
     Returns (B, H, Dh)."""
-    if _route(q, "decode_attention") == "cpu":
-        return _decode.decode_attention_torch(q, k_cache, v_cache, lengths,
-                                              window=window)
-    return _decode.decode_attention_cuda(q, k_cache, v_cache, lengths,
-                                         window=window)
+    return _decode.FORWARD[_route(q, "decode_attention")](
+        q, k_cache, v_cache, lengths, window=window)
 
 
 def ssd_scan(xh, dt, a, bmat, cmat, h0=None):
@@ -70,9 +74,7 @@ def ssd_scan(xh, dt, a, bmat, cmat, h0=None):
     route = _route(xh, "ssd_scan")
     if _wants_grad(xh, dt, a, bmat, cmat, h0):
         return _ssd.SSDScan.apply(xh, dt, a, bmat, cmat, h0)
-    if route == "cpu":
-        return _ssd.ssd_scan_torch(xh, dt, a, bmat, cmat, h0)
-    return _ssd.ssd_scan_cuda(xh, dt, a, bmat, cmat, h0)
+    return _ssd.FORWARD[route](xh, dt, a, bmat, cmat, h0)
 
 
 def rglru_scan(a, b, h0=None):
@@ -82,6 +84,4 @@ def rglru_scan(a, b, h0=None):
     route = _route(a, "rglru_scan")
     if _wants_grad(a, b, h0):
         return _rglru.RGLRUScan.apply(a, b, h0)
-    if route == "cpu":
-        return _rglru.rglru_scan_torch(a, b, h0)
-    return _rglru.rglru_scan_cuda(a, b, h0)
+    return _rglru.FORWARD[route](a, b, h0)

@@ -74,10 +74,11 @@ two.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pricing
 
 launches = 0  # forward scans on the card (plain-version calls not counted)
 bwd_launches = 0  # backward passes on the card, one launch each
@@ -98,6 +99,38 @@ def scratch_sizes(bsz: int, s: int, w: int) -> tuple[int, int]:
     A, E and the end state a lane a chunk."""
     n_chunks = -(-s // CHUNK)
     return bsz * n_chunks * -(-w // THREADS) + 1, 3 * bsz * n_chunks * w
+
+
+def cost(bsz: int, s: int, w: int, *, itemsize: int = 4,
+         with_h0: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one forward call: a multiply-add per element;
+    a and b read once, h_seq (fp32) written once, h0 read and h_last
+    written (fp32)."""
+    n = bsz * s * w
+    return 2 * n, 2 * itemsize * n + 4 * n + 4 * bsz * w * (1 + with_h0)
+
+
+def bwd_cost(bsz: int, s: int, w: int, *, itemsize: int = 4,
+             with_h0: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one backward call: two multiply-adds per
+    element (the reverse recurrence, da); a, h_seq and g read once, da and
+    db written once (fp32), g_last and h0 read and dh0 written."""
+    n = bsz * s * w
+    return 4 * n, itemsize * n + 16 * n + 4 * bsz * w * (2 + with_h0)
+
+
+def rglru_scan_meta(a, b, h0=None):
+    """The meta route (``kernels/pricing.py``): the outputs and the scratch
+    the CUDA wrapper allocates, computed by nothing, and the cost
+    charged."""
+    bsz, s, w = a.shape
+    pricing.charge("rglru_scan", cost(bsz, s, w, itemsize=a.element_size(),
+                                      with_h0=h0 is not None))
+    n_status, n_values = scratch_sizes(bsz, s, w)
+    h_seq = torch.empty((bsz, s, w), dtype=torch.float32, device=a.device)
+    h_last = torch.empty((bsz, w), dtype=torch.float32, device=a.device)
+    torch.empty(n_values + n_status, dtype=torch.float32, device=a.device)
+    return h_seq, h_last
 
 
 def rglru_scan_torch(a, b, h0=None):
@@ -240,29 +273,47 @@ def rglru_scan_backward_cuda(a, h_seq, h0, g_seq, g_last):
     return da, db, dh0
 
 
+def rglru_scan_backward_meta(a, h_seq, h0, g_seq, g_last):
+    """The backward's meta route: what ``rglru_scan_backward_cuda``
+    allocates, computed by nothing, and its cost charged."""
+    g_seq, g_last = g_seq.float().contiguous(), g_last.float().contiguous()
+    bsz, s, w = a.shape
+    pricing.charge("rglru_scan_backward",
+                   bwd_cost(bsz, s, w, itemsize=a.element_size(),
+                            with_h0=h0 is not None))
+    n_status, n_values = scratch_sizes(bsz, s, w)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    grads = (torch.empty((bsz, s, w), **f32), torch.empty((bsz, s, w), **f32),
+             torch.empty((bsz, w), **f32))
+    torch.empty(n_values + n_status, **f32)
+    return grads
+
+
+# device type -> the forward and the backward (``kernels/ops.py``)
+FORWARD = {"cpu": pricing.plain(rglru_scan_torch), "meta": rglru_scan_meta,
+           "cuda": rglru_scan_cuda}
+BACKWARD = {"cpu": pricing.plain(functools.partial(rglru_scan_backward,
+                                                   rglru_scan_torch)),
+            "meta": rglru_scan_backward_meta,
+            "cuda": rglru_scan_backward_cuda}
+
+
 class RGLRUScan(torch.autograd.Function):
     """The scan with its backward: for a CUDA tensor the kernel's two
-    entries (``rglru_scan_cuda``, ``rglru_scan_backward_cuda``), on the
-    CPU ``rglru_scan_torch`` and ``rglru_scan_backward`` through it.
-    Saves a, h0 and h_seq."""
+    entries (``rglru_scan_cuda``, ``rglru_scan_backward_cuda``), for a
+    ``meta`` tensor their meta routes, on the CPU ``rglru_scan_torch`` and
+    ``rglru_scan_backward`` through it.  Saves a, h0 and h_seq."""
 
     @staticmethod
     def forward(ctx, a, b, h0):
-        cuda = a.device.type == "cuda"
-        h_seq, h_last = (rglru_scan_cuda if cuda else rglru_scan_torch)(
-            a, b, h0)
+        h_seq, h_last = FORWARD[a.device.type](a, b, h0)
         ctx.save_for_backward(a, h_seq, h0)
-        ctx.cuda, ctx.b_dtype = cuda, b.dtype
+        ctx.b_dtype = b.dtype
         return h_seq, h_last
 
     @staticmethod
     def backward(ctx, g_seq, g_last):
         a, h_seq, h0 = ctx.saved_tensors
-        if ctx.cuda:
-            da, db, dh0 = rglru_scan_backward_cuda(a, h_seq, h0, g_seq,
-                                                   g_last)
-        else:
-            da, db, dh0 = rglru_scan_backward(rglru_scan_torch, a, h_seq, h0,
-                                              g_seq, g_last)
+        da, db, dh0 = BACKWARD[a.device.type](a, h_seq, h0, g_seq, g_last)
         return (da.to(a.dtype), db.to(ctx.b_dtype),
                 None if h0 is None else dh0)

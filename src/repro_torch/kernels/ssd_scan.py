@@ -103,13 +103,14 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pricing
 
 launches = 0  # kernel launches, one a call (plain-version calls not counted)
 bwd_launches = 0  # backward passes on the card (``ssd_scan_bwd_cuda``)
 
 NEG_INF = -1e30
 CHUNK = 64            # the plain version's chunk (the kernel has its own)
+KERNEL_CHUNK = 64     # the kernels' chunk (``L`` in both CUDA sources)
 SHAPES = ((128, 64),)  # (N, P) the kernel is built for
 COL_BLOCK = 32        # columns of P a bf16 block owns (the kernels' PB)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,6 +122,73 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
 def _compute_dtype(xh) -> torch.dtype:
     """fp32, or fp64 for fp64 inputs (the exact reference of the checks)."""
     return torch.float64 if xh.dtype == torch.float64 else torch.float32
+
+
+def cost(b: int, s: int, h: int, p: int, n: int, *, dtype=torch.bfloat16,
+         with_h0: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one forward call.  Bytes: x, B and C read
+    once (in ``dtype``), dt and a (fp32), y written (fp32), h0 read and
+    h_final written (fp32).  Operations of the route ``dtype`` takes: bf16,
+    the chunked form's products on the tensor cores (chunks of L = 64): the
+    gram C B^T (2 L N a position, shared by the heads), and per head M' x
+    (2 L P), C H and the state update (2 N P each); fp32, the recurrence
+    on the CUDA cores: decay and update, then C^T h, per element of every
+    (position, head) state."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (item * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
+              + 4 * (b * s * h * p + b * h * n * p * (1 + with_h0)))
+    ell = KERNEL_CHUNK
+    if dtype == torch.bfloat16:
+        return 2 * b * s * (ell * n + h * (ell * p + 2 * n * p)), nbytes
+    return 4 * b * s * h * n * p, nbytes
+
+
+def bwd_cost(b: int, s: int, h: int, p: int, n: int, *,
+             dtype=torch.bfloat16, with_h0: bool = False,
+             with_dh_final: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one backward call.  Bytes: x, B, C read and
+    dx, dB, dC written (in ``dtype``), dt, a read and ddt, da written
+    (fp32), dy read (fp32), h0 read and dh0 written, dh_final read.
+    Operations (chunks of L = 64): the gram, per head dM and M^T dy (2 L P
+    each), dG B and dG^T C (2 L N each), and six products of 2 N P (C H,
+    B dH, dy H^T, u dH^T, C^T dy, the recomputed state update)."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    x_el, bc_el, dt_el = b * s * h * p, 2 * b * s * n, b * s * h
+    nbytes = (2 * item * (x_el + bc_el) + 2 * 4 * (dt_el + h) + 4 * x_el
+              + 4 * b * h * n * p * (2 * with_h0 + with_dh_final))
+    ell = KERNEL_CHUNK
+    ops = 2 * b * s * (ell * n + h * (2 * ell * p + 2 * ell * n + 6 * n * p))
+    return ops, nbytes
+
+
+def ssd_scan_meta(xh, dt, a, bmat, cmat, h0=None):
+    """The meta route (``kernels/pricing.py``): the kernel's outputs,
+    computed by nothing, and its cost charged."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    pricing.charge("ssd_scan", cost(b, s, h, p, n, dtype=xh.dtype,
+                                    with_h0=h0 is not None))
+    f32 = dict(dtype=torch.float32, device=xh.device)
+    return torch.empty((b, s, h, p), **f32), torch.empty((b, h, n, p), **f32)
+
+
+def ssd_scan_bwd_meta(xh, dt, a, bmat, cmat, h0, dy, dh_final):
+    """The backward's meta route: the gradients and the scratch
+    ``ssd_scan_bwd_cuda`` allocates, computed by nothing, and its cost
+    charged."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    pricing.charge("ssd_scan_backward",
+                   bwd_cost(b, s, h, p, n, dtype=xh.dtype,
+                            with_h0=h0 is not None,
+                            with_dh_final=dh_final is not None))
+    f32 = dict(dtype=torch.float32, device=xh.device)
+    grads = (torch.empty((b, s, h, p), **f32), torch.empty((b, s, h), **f32),
+             torch.empty((h,), **f32), torch.empty((b, s, n), **f32),
+             torch.empty((b, s, n), **f32), torch.empty((b, h, n, p), **f32))
+    torch.empty(sum(bwd_scratch_sizes(b, s, h, p, n, xh.dtype).values()),
+                **f32)
+    return grads
 
 
 def ssd_scan_torch(xh, dt, a, bmat, cmat, h0=None):
@@ -408,35 +476,38 @@ def ssd_scan_bwd_cuda(xh, dt, a, bmat, cmat, h0, dy, dh_final):
     return dx, ddt, da, db, dc, dh0
 
 
+# device type -> the forward and the backward (``kernels/ops.py``)
+FORWARD = {"cpu": pricing.plain(ssd_scan_torch), "meta": ssd_scan_meta,
+           "cuda": ssd_scan_cuda}
+BACKWARD = {"cpu": pricing.plain(ssd_scan_bwd_chunks),
+            "meta": ssd_scan_bwd_meta, "cuda": ssd_scan_bwd_cuda}
+
+
 class SSDScan(torch.autograd.Function):
     """The scan with its backward kernel: on a CUDA tensor the forward
-    kernel, then ``ssd_scan_bwd_cuda``; on the CPU ``ssd_scan_torch``,
-    then ``ssd_scan_bwd_chunks``.  Saves the inputs only: the backward
-    recomputes the chunk-start states (in the kernel, into a scratch freed
-    with the call).  Each gradient comes back in its input's dtype."""
+    kernel, then ``ssd_scan_bwd_cuda``; on a ``meta`` tensor their meta
+    routes; on the CPU ``ssd_scan_torch``, then ``ssd_scan_bwd_chunks``.
+    Saves the inputs only: the backward recomputes the chunk-start states
+    (in the kernel, into a scratch freed with the call).  Each gradient
+    comes back in its input's dtype."""
 
     @staticmethod
     def forward(ctx, xh, dt, a, bmat, cmat, h0):
         ctx.set_materialize_grads(False)
-        cuda = xh.device.type == "cuda"
-        y, h_final = (ssd_scan_cuda if cuda else ssd_scan_torch)(
-            xh, dt, a, bmat, cmat, h0)
+        y, h_final = FORWARD[xh.device.type](xh, dt, a, bmat, cmat, h0)
         ctx.save_for_backward(xh, dt, a, bmat, cmat, h0)
-        ctx.cuda = cuda
         return y, h_final
 
     @staticmethod
     def backward(ctx, dy, dh_final):
         xh, dt, a, bmat, cmat, h0 = ctx.saved_tensors
-        if ctx.cuda:
-            grads = ssd_scan_bwd_cuda(
-                xh, dt, a, bmat, cmat, h0,
-                None if dy is None else dy.float().contiguous(),
-                None if dh_final is None else dh_final.float().contiguous())
-        else:
-            grads = ssd_scan_bwd_chunks(xh, dt, a, bmat, cmat, h0, dy,
-                                        dh_final)
-        dx, ddt, da, db, dc, dh0 = grads
+        route = xh.device.type
+        if route != "cpu":  # the kernel takes fp32 contiguous gradients
+            dy = None if dy is None else dy.float().contiguous()
+            dh_final = (None if dh_final is None
+                        else dh_final.float().contiguous())
+        dx, ddt, da, db, dc, dh0 = BACKWARD[route](xh, dt, a, bmat, cmat, h0,
+                                                   dy, dh_final)
         return (dx.to(xh.dtype), ddt.to(dt.dtype), da.to(a.dtype),
                 db.to(bmat.dtype), dc.to(cmat.dtype),
                 None if h0 is None else dh0.to(h0.dtype))

@@ -184,7 +184,10 @@ def causal_conv(x, conv_w, conv_state=None):
            else conv_state)
     xpad = torch.cat([pad, x], dim=1)
     out = sum(xpad[:, i:i + x.shape[1]] * conv_w[i] for i in range(k))
-    return out, xpad[:, -(k - 1):]
+    state = xpad[:, -(k - 1):]
+    # a sequence's state is copied out: as a view it would keep the whole
+    # padded sequence alive in the cache, a (B, S, W) buffer per layer
+    return out, (state.clone() if x.shape[1] > 1 else state)
 
 
 # ---------------------------------------------------------------- mlp ----

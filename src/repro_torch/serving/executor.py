@@ -232,12 +232,28 @@ def serve(arch: str = "yi-9b", *, requests: int = 8, batch: int = 4,
           device="cuda", smoke: bool = False,
           n_layers: int | None = None) -> ServeReport:
     """Build ``arch`` in bf16 from ``seed`` (``n_layers`` deep if given)
-    and serve the seeded requests."""
-    if output_len < 1 or batch < 1 or min(prompt_lens) < 1:
-        raise ValueError("output_len, batch and prompt lengths must be >= 1")
+    and serve the seeded requests (``serve_model``)."""
+    _check_load(requests, batch, prompt_lens, output_len)
     reduced = depth_reduction(arch, n_layers, device, smoke=smoke)
     model = build_model(arch, seed=seed, device=device, smoke=smoke,
                         n_layers=n_layers)
+    return serve_model(model, requests=requests, batch=batch,
+                       prompt_lens=prompt_lens, output_len=output_len,
+                       seed=seed, reduced=reduced)
+
+
+def _check_load(requests, batch, prompt_lens, output_len):
+    if output_len < 1 or batch < 1 or min(prompt_lens) < 1:
+        raise ValueError("output_len, batch and prompt lengths must be >= 1")
+
+
+def serve_model(model: Model, *, requests: int = 8, batch: int = 4,
+                prompt_lens=(512, 1000), output_len: int = 32, seed: int = 0,
+                reduced: list[str] = ()) -> ServeReport:
+    """Serve the requests drawn from ``seed`` on ``model``, on its device;
+    ``reduced``: the cuts it was built with (``depth_reduction``), for the
+    report."""
+    _check_load(requests, batch, prompt_lens, output_len)
     cfg = model.cfg
     encoder = not cfg.has_decoder
     reqs = make_requests(requests, prompt_lens, output_len, cfg.vocab_size,
@@ -257,7 +273,7 @@ def serve(arch: str = "yi-9b", *, requests: int = 8, batch: int = 4,
     results.sort(key=lambda r: r.rid)
     return ServeReport(results, len(batches),
                        sum(max(bt[0].output_len - 1, 0) for bt in batches),
-                       wall, finite, encoder, batch_ms, reduced)
+                       wall, finite, encoder, batch_ms, list(reduced))
 
 
 def main(argv=None) -> ServeReport:

@@ -15,6 +15,7 @@ Decoding past the local window is held against JAX's windowed
 writes position t at slot t % size).
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -196,8 +197,15 @@ def test_ops_routes_rglru_scan_by_device():
                          trglru.rglru_scan_torch(a, bb, h0)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert trglru.launches == before
+    # meta is priced, not computed: the plain version's shapes and dtypes
+    for got, want in zip(ops.rglru_scan(a.to("meta"), bb.to("meta")),
+                         trglru.rglru_scan_torch(a, bb)):
+        assert (got.device.type, got.shape, got.dtype) == (
+            "meta", want.shape, want.dtype)
+    assert trglru.launches == before
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no implementation"):
-        ops.rglru_scan(a.to("meta"), bb.to("meta"))
+        ops.rglru_scan(other, bb)
     with pytest.raises(ValueError, match="not a CUDA device"):
         trglru.rglru_scan_cuda(a, bb, h0)
 

@@ -8,6 +8,7 @@ CUDA kernels themselves need the card: ``chip_smoke.py`` holds them against
 these plain versions there.  Shapes stay small: interpret mode is slow.
 """
 import re
+import types
 
 import numpy as np
 import pytest
@@ -146,7 +147,8 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
 
 def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     """A CUDA wrapper never runs a plain version: a CPU tensor is refused,
-    and so is a device that has no implementation."""
+    and so is a device that has no implementation (``meta`` has one: it is
+    priced, see ``tests/test_torch_launch.py``)."""
     q = torch.zeros(1, 4, 8, 64)
     k = torch.zeros(1, 2, 8, 64)
     with pytest.raises(ValueError, match="not a CUDA device"):
@@ -155,11 +157,12 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
         tdecode.decode_attention_cuda(q[:, :, 0], k.transpose(1, 2),
                                       k.transpose(1, 2),
                                       torch.ones(1, dtype=torch.int32))
-    meta = torch.zeros(1, 4, 8, 64, device="meta")
+    # a stand-in for a tensor on a device the port has no route for
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no implementation"):
-        ops.flash_attention(meta, meta, meta)
+        ops.flash_attention(other, other, other)
     with pytest.raises(ValueError, match="no implementation"):
-        ops.decode_attention(meta[:, :, 0], meta, meta,
+        ops.decode_attention(other, other, other,
                              torch.ones(1, dtype=torch.int32))
 
 

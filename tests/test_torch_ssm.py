@@ -12,6 +12,7 @@ Inputs come from ``numpy.random.default_rng``; JAX weights are carried
 across by ``params_from_jax``.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -121,9 +122,14 @@ def test_ops_routes_ssd_scan_by_device():
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert tssd.launches == before
+    # meta is priced, not computed: the plain version's shapes and dtypes
     meta = [t.to("meta") for t in args]
+    for g, w in zip(ops.ssd_scan(*meta), want):
+        assert (g.device.type, g.shape, g.dtype) == ("meta", w.shape, w.dtype)
+    assert tssd.launches == before
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no implementation"):
-        ops.ssd_scan(*meta)
+        ops.ssd_scan(other, *args[1:])
     with pytest.raises(ValueError, match="not a CUDA device"):
         tssd.ssd_scan_cuda(*args)
 
