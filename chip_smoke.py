@@ -103,7 +103,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    weak-scaling sweep at 1, 2 and 4 nodes, a node of 4 dying at half the
    horizon and a seeded fault storm on 4, each run's line printed, each
    of which must conserve its requests, and a 1-node fleet that must be
-   the bare replay on the same requests) (host work alone:
+   the bare replay on the same requests; interference off, since this
+   run measures no full co-run table) (host work alone:
    ``launch/serve.py`` in a process of its own, ``start_serve``, run
    beside phases 7-8 and printed after phase 8);
 7. interference (``launch/profile_interference.py``, ``core/h100intf.py``):
@@ -125,10 +126,15 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    both ``gpulet`` variants at 0.999 of their maxima under the measured
    interference, and the serving controller under the fluctuating rates of
    the JAX package's example, at the example's share of the elastic
-   maximum (``launch/serve.py --fluctuate``, interference off), and the
-   fleet layer as in phase 6, each of which must conserve its requests
-   (these last from the committed tables alone, in a process of their own
-   started before phase 6 and printed after phase 8);
+   maximum (``launch/serve.py --fluctuate``), and the fleet layer as in
+   phase 6; the controller and every fleet run twice, on the committed
+   co-run factors (the fleet's nodes ``fabric/h100node.py``'s measured
+   nodes) and with interference off, each labelled, with goodput a node
+   and violations per class (the fleet) or per model (the controller)
+   logged side by side, each of which must conserve its requests, and
+   the 1-node fleet the bare replay with either interference (these last
+   from the committed tables alone, in a process of their own started
+   before phase 6 and printed after phase 8);
 8. train (recurrentgemma-2b, ``TRAIN_ARCH``, and mamba2-780m,
    ``SSM_ARCH``): the flash backward against
    autograd of the plain version (dq, dk, dv; bf16 and fp32; at
@@ -165,7 +171,12 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    backwards, no decode or SSD scan; mamba2-780m per step 96 SSD scans
    (48 layers, each recomputed) and 48 SSD backwards, nothing else; and
    one more step of each traced by the profiler (device busy, kernel time
-   by family).
+   by family); after each of the 8 steps, outside the timed window, the
+   allocated bytes before and after a collection (``gc.collect``), which
+   must free nothing; and for each of the two, the first 2 steps of a
+   fresh process (``chip_smoke.py --first-step ARCH``) with Python's
+   collector off: each step's peak, its allocated bytes after it and after
+   a collection, which must free nothing, and the modules it imported.
 
 The line before the last is the kernels' JSON record (one entry per kernel
 and served model, one for the grid's decode launches and one for the
@@ -180,6 +191,7 @@ the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -269,6 +281,9 @@ KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 TRAIN_ARCH = "recurrentgemma-2b"
 SSM_ARCH = "mamba2-780m"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
+# phase 8: the steps of a fresh process checked for what only a collection
+# frees (``first_step``), and the time one such process may take
+FIRST_STEPS, FIRST_STEP_TIMEOUT_S = 2, 300
 TRAIN_PATH = f"train:{TRAIN_ARCH}"
 SSM_PATH = f"train:{SSM_ARCH}"
 # the fp32 card-vs-CPU step: (layers, tokens) of each trained model; 2100
@@ -1700,14 +1715,26 @@ def phase_interference(records: dict, grid: list):
 
 
 def check_committed_replay(result: dict):
-    """Phase 7's replays of the committed tables: every replay and the
-    controller's run conserve their requests, and some enumerated
-    partitioning places the mix."""
-    if not all(r["conserved"] for r in result["replays"].values()) \
-            or not result["fluctuate"]["conserved"]:
+    """Phase 7's replays of the committed tables: every replay conserves
+    its requests, some enumerated partitioning places the mix, and the
+    controller ran on the measured co-run factors and with interference
+    off, each run labelled and conserving its requests."""
+    if not all(r["conserved"] for r in result["replays"].values()):
         raise AssertionError(f"a replay lost requests: {result}")
     if not result["ideal_enumerated_max_scale"] > 0:
         raise AssertionError("no enumerated partitioning places the mix")
+    runs = [result["fluctuate"], result["fluctuate_off"]]
+    for fl in runs:
+        by_model = ", ".join(f"{m} {v['violation_rate'] * 100:.3f}%"
+                             for m, v in fl["per_model"].items())
+        log(f"  controller, interference {fl['interference']}: "
+            f"{fl['violation_rate'] * 100:.3f}% violations of {fl['total']}"
+            f" requests, {fl['reschedules']} reschedules, by model "
+            f"{by_model}")
+    if [fl["interference"] for fl in runs] != ["measured", "off"]:
+        raise AssertionError(f"the controller ran {runs}")
+    if not all(fl["conserved"] and fl["total"] > 0 for fl in runs):
+        raise AssertionError(f"a controller run lost requests: {runs}")
 
 
 def start_serve(*args: str) -> subprocess.Popen:
@@ -1748,25 +1775,34 @@ def finish_serve(proc: subprocess.Popen, header: str) -> dict:
     return json.loads(lines[-1])
 
 
-def check_fleet(result: dict, table: str):
+def check_fleet(result: dict, table: str, labels: list[str]):
     """A ``--fleet`` run's record: the sweep at every node count, the
-    failure drain and the storm each conserve their requests, and the
-    1-node fleet is the bare replay on the same requests."""
+    failure drain and the storm, each served with the interference of
+    every label of ``labels`` (``measured``, ``off``) and labelled so,
+    each conserving its requests; and the 1-node fleet the bare replay
+    on the same requests, for each label."""
     fleet = result["fleet"]
     runs = fleet["runs"]
-    want = [f"sweep-{n}n" for n in FLEET.split(",")]
+    names = [f"sweep-{n}n" for n in FLEET.split(",")]
     n = FLEET.split(",")[-1]
-    want += [f"faildrain-{n}n", f"chaos-{n}n"]
-    log(f"  fleet on {table}: " + ", ".join(
-        f"{r['run']} {r['goodput_per_node_req_s']:.1f} req/s a node, "
-        f"{r['violation_rate'] * 100:.3f}% violations, conserved "
-        f"{r['conserved']}" for r in runs))
-    if [r["run"] for r in runs] != want:
-        raise AssertionError(f"the fleet ran {[r['run'] for r in runs]}, "
-                             f"not {want}")
+    names += [f"faildrain-{n}n", f"chaos-{n}n"]
+    want = [(name, label) for name in names for label in labels]
+    log(f"  fleet on {table}:")
+    for r in runs:
+        log(f"    {r['run']} interference {r['interference']}: "
+            f"{r['goodput_per_node_req_s']:.4f} req/s a node, violations "
+            f"{r['violation_rate'] * 100:.3f}% (" + ", ".join(
+                f"{c} {v['violation_rate'] * 100:.3f}%"
+                for c, v in r["per_class"].items())
+            + f"), conserved {r['conserved']}")
+    got = [(r["run"], r["interference"]) for r in runs]
+    if got != want:
+        raise AssertionError(f"the fleet ran {got}, not {want}")
     if not all(r["conserved"] and r["total"] > 0 for r in runs):
         raise AssertionError(f"a fleet run lost requests: {runs}")
-    if not fleet["bare_equal"]:
+    bare = fleet["bare_equal"]
+    log(f"    the 1-node fleet is the bare replay: {bare}")
+    if sorted(bare) != sorted(labels) or not all(bare.values()):
         raise AssertionError("the 1-node fleet is not the bare replay")
 
 
@@ -1776,12 +1812,13 @@ def finish_schedules(procs: dict):
         procs["grid"], "[6] (continued) the schedulers and the fleet on "
         "this run's grid, run beside phases 7-8:")
     check_grid_schedule(grid)
-    check_fleet(grid, "this run's grid")
+    # no full co-run table of this run: its fleet runs with interference off
+    check_fleet(grid, "this run's grid", ["off"])
     committed = finish_serve(
         procs["committed"], "[7] (continued) the committed tables, run "
         "beside phases 6-8:")
     check_committed_replay(committed)
-    check_fleet(committed, "the committed tables")
+    check_fleet(committed, "the committed tables", ["measured", "off"])
 
 
 # ------------------------------------------------------------- training ----
@@ -2387,11 +2424,26 @@ def train_full(arch, records):
     names = train_counters()
     for module, attr in names.values():
         setattr(module, attr, 0)
+    held = []  # allocated bytes after each step, before / after collecting
+
+    def log_step(line):
+        # the loop logs a step after timing it: a collection here is
+        # outside the timed window
+        log("    " + line)
+        if line.startswith("step "):
+            before = torch.cuda.memory_allocated()
+            gc.collect()
+            held.append((before, torch.cuda.memory_allocated()))
+
     rep = launcher.train(arch, "full", steps=TRAIN_STEPS,
                          batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=1e-3,
-                         device="cuda",
-                         log_fn=lambda line: log("    " + line))
+                         device="cuda", log_fn=log_step)
     counts = read_counts(names)
+    log("    allocated after each step, before / after a collection (GiB): "
+        + ", ".join(f"{a / 2**30:.4f} / {b / 2**30:.4f}" for a, b in held))
+    if len(held) != TRAIN_STEPS or any(b < a for a, b in held):
+        raise AssertionError("a collection freed memory after a step: the "
+                             "step left tensors in reference cycles")
     want = expected_train_launches(get_config(arch), TRAIN_STEPS)
     log(f"    launches {counts}, expected {want}")
     if counts != want:
@@ -2413,6 +2465,64 @@ def train_full(arch, records):
         if path == f"train:{arch}":
             r["launches"] = counts[name]
     return rep["model"]
+
+
+def first_step(arch: str) -> dict:
+    """Runs in a fresh process (``chip_smoke.py --first-step ARCH``):
+    ``FIRST_STEPS`` bf16 training steps of ``arch`` at full width and
+    depth, B4 x S1024, with Python's collector off, so that nothing a step
+    leaves in reference cycles is freed by chance.  After each step: its
+    peak allocated bytes, the bytes still allocated, those allocated after
+    a collection, and the modules the step imported."""
+    from repro_torch.data import token_batches
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models.model import Model
+    from repro_torch.training.optim import OptimConfig
+    from repro_torch.training.train import make_train_step
+    cfg = PRESETS["full"](arch)
+    model = Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, OptimConfig())
+    batches = list(token_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                 FIRST_STEPS))
+    gc.collect()
+    gc.disable()
+    steps = []
+    for batch in batches:
+        n_modules = len(sys.modules)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        steps.append({"peak": torch.cuda.max_memory_allocated(),
+                      "allocated": held,
+                      "after_collect": torch.cuda.memory_allocated(),
+                      "imported_modules": len(sys.modules) - n_modules})
+    return {"arch": arch, "steps": steps}
+
+
+def first_steps(arch: str):
+    """:func:`first_step` in a fresh process, logged; fails if a
+    collection frees memory after a step (the step left tensors that only
+    reference cycles held)."""
+    out = subprocess.run([sys.executable, __file__, "--first-step", arch],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=FIRST_STEP_TIMEOUT_S)
+    if out.returncode:
+        raise AssertionError(f"--first-step {arch} exited {out.returncode}:"
+                             f" {out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.splitlines()[-1])
+    for i, st in enumerate(rec["steps"], 1):
+        log(f"    {arch}, a fresh process, step {i} with the collector off: "
+            f"peak {st['peak'] / 2**30:.4f} GiB, allocated after it "
+            f"{st['allocated'] / 2**30:.4f} GiB, after a collection "
+            f"{st['after_collect'] / 2**30:.4f} GiB; "
+            f"{st['imported_modules']} modules imported")
+    if any(st["after_collect"] < st["allocated"] for st in rec["steps"]):
+        raise AssertionError(f"a collection freed memory after a step of "
+                             f"{arch}'s fresh process: {rec}")
 
 
 def profile_train_step(model):
@@ -2497,6 +2607,11 @@ def phase_train(records: dict):
         log(f"  {arch} bf16, full width and depth, {TRAIN_STEPS} steps of "
             f"B{TRAIN_BATCH} x S{TRAIN_SEQ}:")
         timed(profile_train_step, timed(train_full, arch, records))
+    torch.cuda.empty_cache()
+    log(f"  the first {FIRST_STEPS} steps of a fresh process, bf16 B"
+        f"{TRAIN_BATCH} x S{TRAIN_SEQ}, full width and depth:")
+    for arch in (TRAIN_ARCH, SSM_ARCH):
+        timed(first_steps, arch)
 
 
 def main() -> int:
@@ -2505,6 +2620,9 @@ def main() -> int:
               "runs on the card only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--first-step"]:
+        print(json.dumps(first_step(sys.argv[2])))
+        return 0
     t0 = time.perf_counter()
     device = phase_device()
     # the dry run's sweep, host work beside phases 2-4, read in phase 5;

@@ -25,10 +25,11 @@ data, and counts as it goes:
     ``temp_size_in_bytes`` (the rest of the peak): arguments + temps +
     outputs - aliases is ``peak_bytes``, the most the step holds at once,
     from a ``TorchDispatchMode`` that adds each new storage when an op
-    makes it and takes it off when it dies (a weakref finalizer).  A
-    training step's peak moves with when Python's collector runs: the step
-    leaves reference cycles (the frames of the exception that stops a
-    checkpoint's recompute) that hold its blocks' inputs;
+    makes it and takes it off when it dies (a weakref finalizer).  No
+    tensor of a step is held by reference cycles alone, so the peak does
+    not move with when Python's collector runs (the first step included:
+    ``models/transformer.py`` imports ``torch._dynamo`` before it, and the
+    FLOP counter keeps no per-module grad hooks);
   * ``fits_one_card``: that peak at most ``H100_SXM.hbm_gb``, in decimal GB
     (80e9 bytes: the card has 85.0e9, the rest left to the CUDA context,
     the libraries' workspaces and the allocator);
@@ -53,6 +54,7 @@ Nothing is allocated on any device but ``meta``.  Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -222,12 +224,22 @@ def op_bytes(func, args, kwargs, out) -> int:
 
 class _FlopsOutsideKernels(FlopCounterMode):
     """``FlopCounterMode`` that skips the ops of a kernel's plain version
-    (its CPU route, ``pricing.plain``)."""
+    (its CPU route, ``pricing.plain``) and counts the total only.  Its
+    per-module tracker is left out: the grad hooks it puts on every
+    module's inputs and outputs make reference cycles with the autograd
+    graph, which keep a training step's saved tensors alive until Python's
+    collector runs, so the step's peak would move with the collector."""
+
+    def __init__(self):
+        super().__init__(display=False)
+        self.mod_tracker = contextlib.nullcontext()
 
     def _count_flops(self, func_packet, out, args, kwargs):
-        if pricing.inside():
-            return out
-        return super()._count_flops(func_packet, out, args, kwargs)
+        count = self.flop_registry.get(func_packet)
+        if count is not None and not pricing.inside():
+            self.flop_counts["Global"][func_packet] += count(
+                *args, **kwargs, out_val=out)
+        return out
 
 
 class _Meter(TorchDispatchMode):
@@ -289,7 +301,7 @@ def trace(step, arguments) -> dict:
     (outside the kernels, and the kernels' own, by kernel), its memory and
     its wall time."""
     with pricing.pricing() as ledger, \
-            _FlopsOutsideKernels(display=False) as flops:
+            _FlopsOutsideKernels() as flops:
         meter = _Meter(arguments)
         with meter:
             t0 = time.perf_counter()

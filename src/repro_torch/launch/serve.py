@@ -39,10 +39,15 @@ JAX package's ``examples/fluctuating_rates.py`` for 900 s with the
 example's seed, their base at the share of the elastic maximum that the
 example's base is of its own scheduler's maximum (``EXAMPLE_SHARE``), and
 the controller re-plans with Elastic Partitioning every 20 s.  Its engine
-prices every batch from the catalog's L(b, p), with interference off (the
-copied controller's own ``run`` would build an engine on the analytic
-2080 Ti model).  It prints the violations per window, per model and in
-all.
+(``simulator/h100engine.py``, built here: the copied controller's own
+``run`` would build one on the analytic 2080 Ti model) prices every batch
+from the catalog's L(b, p).  With ``--corun`` it runs twice: on the
+measured co-run factors, and with interference off as the contrast;
+without, interference off only.  The controller plans with ``gpulet``, not
+``gpulet+int``: on the committed tables no split side passes Alg. 1's
+admission under the fitted factors, so ``gpulet+int`` places none of the
+mix (its max scale is printed beside the run).  It prints the violations
+per window, per model and in all.
 
 ``--fleet`` (node counts, default 1,2,4) serves the fleet layer
 (``fabric/``, copied from the JAX package) on nodes of ``--gpus`` cards
@@ -53,10 +58,15 @@ storm: a weak-scaling sweep over the node counts, each node at
 gold / silver / bronze traffic, preemption, the least-loaded router and a
 0.15 ms one-way RPC; one node of the largest fleet dying at half the
 horizon; and a seeded fault storm (``faults.chaos_plan``) on the largest
-fleet.  The nodes' engines run with interference off (a fleet node is the
-copied engine, not the measured one).  A 1-node fleet with no network and
-one class must give the metrics of the bare replay (``serve_end_to_end``,
-interference off) on the same requests.  It prints one JSON line per run.
+fleet.  Each node is planned with plain Elastic Partitioning, as the JAX
+fleet's are.  With ``--corun`` every run is served twice: on measured
+nodes (``fabric/h100node.py``: each node's engine is the measured one),
+and with interference off as the contrast; without ``--corun``, with
+interference off only.  Each run's JSON line says which
+(``"interference": "measured"`` or ``"off"``).  A 1-node fleet with no
+network and one class must give the metrics of the bare replay
+(``serve_end_to_end``) on the same requests, with interference off and,
+with ``--corun``, on the measured factors.
 
 It prints one JSON line last and exits nonzero unless every request of
 every replay, of the controller's run and of every fleet run completed or
@@ -242,25 +252,33 @@ def fleet_per_node(profiles, provider, rates, n_gpus: int):
     """(per-node rates, Elastic Partitioning's maximum on a node):
     ``rates`` at :data:`SWEEP_SHARE` of the most that Elastic Partitioning
     places on one node of ``n_gpus`` cards."""
-    lam = ElasticPartitioning({m: profiles[m] for m in rates},
-                              cluster=cluster_of(n_gpus),
-                              lat=provider).max_scale(rates, 0.0, SEARCH_HI)
+    lam = plan_max_scale(profiles, provider, rates, n_gpus)
     return {m: r * lam * SWEEP_SHARE for m, r in rates.items()}, lam
 
 
-def fleet_config(provider, horizon_s: float, seed: int, **kw):
-    """The JAX fabric sweep's configuration, priced from ``provider``,
-    with interference off."""
+def fleet_config(provider, horizon_s: float, seed: int, *,
+                 interference: bool, **kw):
+    """The JAX fabric sweep's configuration, priced from ``provider``."""
     from repro_torch.fabric import FabricConfig, NetworkModel
     return FabricConfig(horizon_ms=horizon_s * 1e3, policy="least-loaded",
                         network=NetworkModel(base_ms=FLEET_NET_MS,
                                              seed=seed),
-                        preemption=True, lat=provider, interference=False,
-                        **kw)
+                        preemption=True, lat=provider,
+                        interference=interference, **kw)
 
 
-def fleet_summary(name: str, n_nodes: int, trace, fm, host_s: float
-                  ) -> dict:
+def intf_label(corun) -> str:
+    return "off" if corun is None else "measured"
+
+
+def contrasts(corun) -> list:
+    """The tables a run is served on: ``corun`` if given (the measured
+    factors), then none (interference off, the contrast)."""
+    return ([] if corun is None else [corun]) + [None]
+
+
+def fleet_summary(name: str, n_nodes: int, trace, fm, host_s: float,
+                  interference: str = "off") -> dict:
     """One fleet run's line.  ``conserved``: the fleet's completed and
     dropped (the shed and the lost among them) make its total, the trace's
     length, and no request of the trace is left pending."""
@@ -268,7 +286,8 @@ def fleet_summary(name: str, n_nodes: int, trace, fm, host_s: float
     from repro_torch.simulator.trace import PENDING
     f = fm.fleet
     shed, lost = fm.shed_total(), fm.lost_total()
-    return {"run": name, "nodes": n_nodes, "total": f.total,
+    return {"run": name, "nodes": n_nodes, "interference": interference,
+            "total": f.total,
             "completed": f.completed, "dropped": f.dropped, "shed": shed,
             "lost": lost, "goodput_per_node_req_s": fm.goodput_req_s
             / n_nodes, "violation_rate": f.violation_rate,
@@ -284,18 +303,29 @@ def fleet_summary(name: str, n_nodes: int, trace, fm, host_s: float
                 and not (trace.status == PENDING).any())}
 
 
-def serve_fleet(name: str, scn, profiles, cfg, *, n_gpus: int,
-                horizon_s: float, seed: int) -> dict:
-    """Build the fleet of ``scn`` on nodes of ``n_gpus`` cards, serve its
-    seeded trace and summarise the run."""
+def run_fleet(scn, profiles, cfg, *, n_gpus: int, horizon_s: float,
+              seed: int, corun=None):
+    """Build the fleet of ``scn`` on nodes of ``n_gpus`` cards, on
+    ``corun``'s measured co-run factors if given (``cfg`` then has
+    interference on), and serve its seeded trace: (metrics, trace)."""
     from repro_torch.fabric import build_fabric, build_trace_soa
-    t0 = time.perf_counter()
+    from repro_torch.fabric.h100node import measured
     profs = {m: profiles[m] for m in scn.rates}
     fabric = build_fabric(scn, profs, cfg, node_cluster=cluster_of(n_gpus))
+    if corun is not None:
+        measured(fabric, corun)
     trace = build_trace_soa(scn, profs, horizon_s, seed=seed)
-    fm = fabric.serve_trace(trace)
+    return fabric.serve_trace(trace), trace
+
+
+def serve_fleet(name: str, scn, profiles, cfg, *, n_gpus: int,
+                horizon_s: float, seed: int, corun=None) -> dict:
+    """:func:`run_fleet`, summarised."""
+    t0 = time.perf_counter()
+    fm, trace = run_fleet(scn, profiles, cfg, n_gpus=n_gpus,
+                          horizon_s=horizon_s, seed=seed, corun=corun)
     return fleet_summary(name, scn.n_nodes, trace, fm,
-                         time.perf_counter() - t0)
+                         time.perf_counter() - t0, intf_label(corun))
 
 
 def fleet_storm(n_nodes: int, horizon_s: float, seed: int):
@@ -309,45 +339,62 @@ def fleet_storm(n_nodes: int, horizon_s: float, seed: int):
                       n_stragglers=max(1, n_nodes // 4), n_net=1)
 
 
-def fleet(profiles, provider, per_node, node_counts, *, n_gpus: int = 4,
-          horizon_s: float = 20.0, seed: int = 0) -> list[dict]:
-    """The weak-scaling sweep over ``node_counts`` at ``per_node`` req/s
-    a node, one node of the largest fleet dying at half the horizon, and
-    a fault storm on it."""
+def fleet_scenarios(per_node, node_counts, horizon_s: float, seed: int
+                    ) -> list[tuple]:
+    """(name, scenario, extra ``FabricConfig`` fields) of each fleet run:
+    the weak-scaling sweep over ``node_counts`` at ``per_node`` req/s a
+    node, one node of the largest fleet dying at half the horizon, and a
+    fault storm on it."""
     from repro_torch.core.scenarios import (fabric_node_sweep,
                                             failure_drain_scenario)
-    kw = dict(n_gpus=n_gpus, horizon_s=horizon_s, seed=seed)
-    runs = [serve_fleet(scn.name, scn, profiles,
-                        fleet_config(provider, horizon_s, seed), **kw)
-            for scn in fabric_node_sweep(per_node, tuple(node_counts))]
     n = max(node_counts)
+    runs = [(scn.name, scn, {}) for scn in fabric_node_sweep(
+        per_node, tuple(node_counts))]
     drain = failure_drain_scenario(n, per_node, fail_at_s=horizon_s / 2)
-    runs.append(serve_fleet(drain.name, drain, profiles,
-                            fleet_config(provider, horizon_s, seed), **kw))
     storm = fabric_node_sweep(per_node, (n,))[0]
-    runs.append(serve_fleet(
-        f"chaos-{n}n", storm, profiles,
-        fleet_config(provider, horizon_s, seed,
-                     faults=fleet_storm(n, horizon_s, seed)), **kw))
+    return runs + [(drain.name, drain, {}),
+                   (f"chaos-{n}n", storm,
+                    {"faults": fleet_storm(n, horizon_s, seed)})]
+
+
+def fleet(profiles, provider, per_node, node_counts, *, n_gpus: int = 4,
+          horizon_s: float = 20.0, seed: int = 0, corun=None) -> list[dict]:
+    """Each run of :func:`fleet_scenarios`, served on measured nodes when
+    ``corun`` is given, then with interference off."""
+    runs = []
+    for name, scn, kw in fleet_scenarios(per_node, node_counts, horizon_s,
+                                         seed):
+        for table in contrasts(corun):
+            runs.append(serve_fleet(
+                name, scn, profiles,
+                fleet_config(provider, horizon_s, seed,
+                             interference=table is not None, **kw),
+                n_gpus=n_gpus, horizon_s=horizon_s, seed=seed, corun=table))
     return runs
 
 
 def bare_fleet(profiles, provider, rates, *, n_gpus: int = 4,
-               horizon_s: float = 20.0, seed: int = 0):
+               horizon_s: float = 20.0, seed: int = 0, corun=None):
     """A 1-node fleet with no network delay and one class, and
-    :func:`serve_end_to_end` with interference off, on the same Poisson
-    requests: (the fleet's metrics, the bare engine's, the two request
+    :func:`serve_end_to_end`, on the same Poisson requests, both on
+    ``corun``'s measured co-run factors if given, else with interference
+    off: (the fleet's metrics, the bare engine's, the two request
     lists)."""
     from repro_torch.fabric import FabricConfig, ServingFabric
+    from repro_torch.fabric.h100node import measured
     reqs = poisson_requests(profiles, rates, horizon_s * 1e3, seed)
     theirs = copy.deepcopy(reqs)
     fabric = ServingFabric.build(
         {m: profiles[m] for m in rates}, 1, rates,
         FabricConfig(horizon_ms=horizon_s * 1e3, lat=provider,
-                     interference=False), node_cluster=cluster_of(n_gpus))
+                     interference=corun is not None),
+        node_cluster=cluster_of(n_gpus))
+    if corun is not None:
+        measured(fabric, corun)
     fm = fabric.serve(theirs)
     met, _ = serve_end_to_end(profiles, provider, rates, n_gpus=n_gpus,
-                              horizon_s=horizon_s, seed=seed, requests=reqs)
+                              horizon_s=horizon_s, seed=seed, corun=corun,
+                              requests=reqs)
     return fm, met, theirs, reqs
 
 
@@ -384,17 +431,20 @@ def fluctuating_rates(rates) -> dict:
 
 
 def fluctuate(profiles, provider, rates, *, n_gpus: int = 4,
-              seed: int = EXAMPLE_SEED, horizon_s: float = FLUCT_HORIZON_S):
+              seed: int = EXAMPLE_SEED, horizon_s: float = FLUCT_HORIZON_S,
+              corun=None):
     """The serving controller (Fig. 14) re-planning with Elastic
     Partitioning over the catalog as the rates follow
     :func:`fluctuating_rates` around ``rates``.  The controller is the tick
     subscriber of an engine built here (its ``make_subscriber`` path), so
-    that every batch is priced from ``provider``; interference is off.
-    Returns (one record per controller window, the run's metrics, the
-    number of requests offered, the schedule deployed at t = 0)."""
+    that every batch is priced from ``provider``, and the engine's
+    interference is ``corun``'s measured co-run factors, or off without a
+    table.  Returns (one record per controller window, the run's metrics,
+    the number of requests offered, the schedule deployed at t = 0)."""
     from repro_torch.serving.controller import ServingController
-    from repro_torch.simulator import EngineConfig, EventHeapEngine
+    from repro_torch.simulator import EngineConfig
     from repro_torch.simulator.events import merge_sorted
+    from repro_torch.simulator.h100engine import MeasuredInterferenceEngine
     from repro_torch.simulator.metrics import window_metrics
     profs = {m: profiles[m] for m in rates}
     ctrl = ServingController(ElasticPartitioning(
@@ -410,13 +460,13 @@ def fluctuate(profiles, provider, rates, *, n_gpus: int = 4,
     reqs = merge_sorted(streams)
     schedule, on_tick = ctrl.make_subscriber(
         {m: fn(0.0) for m, fn in fns.items()})
-    engine = EventHeapEngine(
+    engine = MeasuredInterferenceEngine(
         profs, EngineConfig(horizon_ms=horizon_ms, acc=H100_SXM,
-                            lat=provider, interference=False,
+                            lat=provider, interference=corun is not None,
                             period_ms=ctrl.period_s * 1e3,
                             reorg_ms=ctrl.reorg_s * 1e3,
                             reorg_policy=ctrl.reorg_policy, event_log=False),
-        schedule=schedule, on_tick=on_tick)
+        schedule=schedule, on_tick=on_tick, corun=corun)
     engine.submit(reqs)
     met = engine.run()
     n_windows = max(1, math.ceil(horizon_s / ctrl.period_s - 1e-9))
@@ -431,16 +481,61 @@ def fluctuate(profiles, provider, rates, *, n_gpus: int = 4,
     return records, met, len(reqs), schedule
 
 
-def fluctuate_summary(records, met, offered: int) -> dict:
+def fluctuate_summary(records, met, offered: int,
+                      interference: str = "off") -> dict:
     return {"total": met.total, "completed": met.completed,
             "dropped": met.dropped, "violation_rate": met.violation_rate,
             "reschedules": sum(r["rescheduled"] for r in records[1:]),
-            "interference": "off",
+            "interference": interference,
             "per_model": {m: {"total": v["total"], "dropped": v["dropped"],
                               "violation_rate": v["violations"] / v["total"]}
                           for m, v in met.per_model.items()},
             "conserved": (met.completed + met.dropped == met.total == offered
                           == sum(r["requests"] for r in records))}
+
+
+def plan_max_scale(profiles, provider, rates, n_gpus: int,
+                   intf_model=None) -> float:
+    """Elastic Partitioning's largest schedulable multiple of ``rates``,
+    with ``intf_model`` in its admission test if given."""
+    return ElasticPartitioning(
+        {m: profiles[m] for m in rates}, cluster=cluster_of(n_gpus),
+        lat=provider, intf_model=intf_model).max_scale(rates, 0.0, SEARCH_HI)
+
+
+def run_fluctuate(profiles, provider, rates, share: float, n_gpus: int,
+                  corun) -> dict:
+    """:func:`fluctuate` around ``rates`` (``share`` of the mix), printed
+    window by window and model by model; returns its summary."""
+    label = intf_label(corun)
+    records, met, offered, first = fluctuate(profiles, provider, rates,
+                                             n_gpus=n_gpus, corun=corun)
+    print(f"controller (Fig. 14), rates of examples/fluctuating_rates.py "
+          f"at base {share:.3f}x of the mix (the example's base is "
+          f"{EXAMPLE_SHARE:.5f} of its scheduler's maximum on the 2080 "
+          f"Ti), seed {EXAMPLE_SEED}, {FLUCT_HORIZON_S:g} s, interference "
+          f"{label}: t(s), requests, violations %, gpu-let % in use, "
+          "rescheduled")
+    print("the controller's plan at t = 0:")
+    print_plan(first, provider, n_gpus)
+    for r in records:
+        pct = (100 * r["violations"] / r["requests"] if r["requests"]
+               else 0.0)
+        print(f"  {r['t_s']:5.0f} {r['requests']:8d} {pct:7.3f}% "
+              f"{r['partition_total']:5d}%"
+              + ("  <resched>" if r["rescheduled"] else ""))
+    fl = dict(fluctuate_summary(records, met, offered, label), scale=share,
+              example_share=EXAMPLE_SHARE, seed=EXAMPLE_SEED,
+              horizon_s=FLUCT_HORIZON_S, planner="gpulet")
+    for m, v in fl["per_model"].items():
+        print(f"  {m:<20} {v['total']:8d} requests "
+              f"{v['violation_rate'] * 100:7.3f}% violations, "
+              f"{v['dropped']} dropped")
+    print(f"controller: {fl['total']} requests, "
+          f"{fl['violation_rate'] * 100:.3f}% violations, "
+          f"{fl['reschedules']} reschedules, conserved {fl['conserved']}"
+          f" (interference {label})")
+    return fl
 
 
 def replay_summary(met, result, rates) -> dict:
@@ -648,36 +743,19 @@ def main(argv=None) -> int:
                  for r in replays.values())
     if args.fluctuate:
         share = lam["elastic"] * EXAMPLE_SHARE if lam else 1.0
-        records, met, offered, first = fluctuate(
-            profiles, provider, {m: r * share for m, r in rates.items()},
-            n_gpus=args.gpus)
-        print(f"controller (Fig. 14), rates of examples/fluctuating_rates.py "
-              f"at base {share:.3f}x of the mix (the example's base is "
-              f"{EXAMPLE_SHARE:.5f} of its scheduler's maximum on the 2080 "
-              f"Ti), seed {EXAMPLE_SEED}, {FLUCT_HORIZON_S:g} s, "
-              "interference off: t(s), requests, violations %, gpu-let % "
-              "in use, rescheduled")
-        print("the controller's plan at t = 0:")
-        print_plan(first, provider, args.gpus)
-        for r in records:
-            pct = (100 * r["violations"] / r["requests"] if r["requests"]
-                   else 0.0)
-            print(f"  {r['t_s']:5.0f} {r['requests']:8d} {pct:7.3f}% "
-                  f"{r['partition_total']:5d}%"
-                  + ("  <resched>" if r["rescheduled"] else ""))
-        fl = dict(fluctuate_summary(records, met, offered), scale=share,
-                  example_share=EXAMPLE_SHARE, seed=EXAMPLE_SEED,
-                  horizon_s=FLUCT_HORIZON_S)
-        for m, v in fl["per_model"].items():
-            print(f"  {m:<20} {v['total']:8d} requests "
-                  f"{v['violation_rate'] * 100:7.3f}% violations, "
-                  f"{v['dropped']} dropped")
-        print(f"controller: {fl['total']} requests, "
-              f"{fl['violation_rate'] * 100:.3f}% violations, "
-              f"{fl['reschedules']} reschedules, conserved {fl['conserved']}"
-              " (interference off)")
-        line["fluctuate"] = fl
-        ok = ok and fl["conserved"] and fl["total"] > 0
+        base = {m: r * share for m, r in rates.items()}
+        if corun is not None:
+            int_lam = (lam["gpulet+int"] if lam else plan_max_scale(
+                profiles, provider, rates, args.gpus, intf_model))
+            print(f"controller: planned with gpulet, not gpulet+int: "
+                  f"gpulet+int's max scale on these tables is {int_lam:g}x "
+                  "(no split side passes Alg. 1's admission under the "
+                  "fitted factors)")
+        for table in contrasts(corun):
+            fl = run_fluctuate(profiles, provider, base, share, args.gpus,
+                               table)
+            line["fluctuate" if table is corun else "fluctuate_off"] = fl
+            ok = ok and fl["conserved"] and fl["total"] > 0
     if args.fleet:
         counts = sorted({int(n) for n in args.fleet.split(",")})
         if counts[0] < 1:
@@ -689,26 +767,32 @@ def main(argv=None) -> int:
               f"of elastic's maximum on a node ({lam_node:g}x the mix), "
               f"{sum(per_node.values()):.1f} req/s a node, 20/50/30 "
               f"gold/silver/bronze, least-loaded, {FLEET_NET_MS} ms RPC, "
-              f"preemption, interference off, {args.horizon_s:g} s, seed "
-              f"{args.seed}; L(b, p) from {source}")
+              f"preemption, interference "
+              f"{'measured, then off' if corun else 'off'}, "
+              f"{args.horizon_s:g} s, seed {args.seed}; L(b, p) from "
+              f"{source}")
         runs = fleet(profiles, provider, per_node, counts, n_gpus=args.gpus,
-                     horizon_s=args.horizon_s, seed=args.seed)
-        fm, met, fleet_reqs, bare_reqs = bare_fleet(
-            profiles, provider, per_node, n_gpus=args.gpus,
-            horizon_s=args.horizon_s, seed=args.seed)
-        bare = is_bare(fm, met, fleet_reqs, bare_reqs)
+                     horizon_s=args.horizon_s, seed=args.seed, corun=corun)
         for run in runs:
             print(json.dumps(run))
-        print(f"fleet: the 1-node fleet (no network, one class) is the bare "
-              f"replay on the same {met.total} requests: {bare}")
+        bare = {}
+        for table in contrasts(corun):
+            fm, met, fleet_reqs, bare_reqs = bare_fleet(
+                profiles, provider, per_node, n_gpus=args.gpus,
+                horizon_s=args.horizon_s, seed=args.seed, corun=table)
+            bare[intf_label(table)] = is_bare(fm, met, fleet_reqs, bare_reqs)
+            print(f"fleet: the 1-node fleet (no network, one class), "
+                  f"interference {intf_label(table)}, is the bare replay on "
+                  f"the same {met.total} requests: {bare[intf_label(table)]}")
         line["fleet"] = {"runs": runs, "bare_equal": bare,
                          "sweep_share": SWEEP_SHARE,
                          "node_max_scale": lam_node,
                          "per_node_req_s": sum(per_node.values()),
-                         "interference": "off",
+                         "interference": [intf_label(t)
+                                          for t in contrasts(corun)],
                          "horizon_s": args.horizon_s}
-        ok = ok and bare and all(r["conserved"] and r["total"] > 0
-                                 for r in runs)
+        ok = ok and all(bare.values()) and all(
+            r["conserved"] and r["total"] > 0 for r in runs)
     if args.replay or args.fluctuate or args.fleet:
         print(json.dumps(line))
     return 0 if ok else 1

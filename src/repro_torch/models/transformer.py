@@ -28,6 +28,9 @@ keeping its activations.
 from __future__ import annotations
 
 import torch
+# checkpoint imports torch._dynamo on its first call, and that import's
+# garbage cycles reach the step's frames and keep its tensors alive
+import torch._dynamo  # noqa: F401
 import torch.utils.checkpoint
 from torch import nn
 

@@ -31,18 +31,7 @@ def _conserved(fm, trace) -> bool:
             and not (trace.status == PENDING).any())
 
 
-# each case, and what it must have exercised on the port's side
-CASES = {
-    "sweep-1n": (C.sweep(1), lambda fm: fm.stats.dispatched),
-    "sweep-2n": (C.sweep(2), lambda fm: len(fm.per_node) == 2),
-    "failure-drain": (C.failure_drain, lambda fm: fm.failed_over > 0),
-    "migrations": (C.migrations, lambda fm: fm.migrations > 0),
-    "autoscale": (C.autoscale, lambda fm: any(
-        e.action == "add" for e in fm.scale_events)),
-    "mixed-dag": (C.mixed_dag, lambda fm: fm.jobs is not None
-                  and fm.jobs.jobs > 0),
-    "streaming": (C.streaming, lambda fm: fm.fleet.completed > 0),
-}
+CASES = C.CASES
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -178,9 +167,10 @@ def test_fleet_cli_conserves_and_is_seed_deterministic(catalog, capsys):
     assert [r["run"] for r in runs] == ["sweep-1n", "sweep-2n",
                                         "faildrain-2n", "chaos-2n"]
     assert runs == last["fleet"]["runs"]
-    assert last["fleet"]["bare_equal"] and last["fleet"]["interference"] \
-        == "off"
+    assert last["fleet"]["bare_equal"] == {"off": True}
+    assert last["fleet"]["interference"] == ["off"]
     for r in runs:
+        assert r["interference"] == "off"
         assert r["conserved"] and r["total"] > 0
         assert r["completed"] + r["dropped"] == r["total"]
         assert r["shed"] + r["lost"] <= r["dropped"]

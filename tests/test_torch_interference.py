@@ -474,14 +474,21 @@ def test_serve_replays_the_committed_tables(monkeypatch):
     assert tcore.SquishyBinPacking(
         {m: profiles[m] for m in mix}, cluster=serve.cluster_of(5),
         lat=provider).max_scale(mix, 0.0, serve.SEARCH_HI) > 0
-    fl = out["fluctuate"]
-    assert fl["conserved"] and fl["total"] > 0
-    assert fl["completed"] + fl["dropped"] == fl["total"]
-    assert fl["interference"] == "off" and fl["reschedules"] > 0
-    assert (fl["seed"], fl["example_share"]) == (serve.EXAMPLE_SEED,
-                                                 serve.EXAMPLE_SHARE)
-    assert fl["scale"] == out["elastic_max_scale"] * fl["example_share"]
-    assert sum(v["total"] for v in fl["per_model"].values()) == fl["total"]
+    # the controller on the measured co-run factors, then with interference
+    # off: the same offered requests, each run conserving them
+    for key, label in (("fluctuate", "measured"), ("fluctuate_off", "off")):
+        fl = out[key]
+        assert fl["conserved"] and fl["total"] > 0
+        assert fl["completed"] + fl["dropped"] == fl["total"]
+        assert fl["interference"] == label and fl["reschedules"] > 0
+        assert fl["planner"] == "gpulet"
+        assert (fl["seed"], fl["example_share"]) == (serve.EXAMPLE_SEED,
+                                                     serve.EXAMPLE_SHARE)
+        assert fl["scale"] == out["elastic_max_scale"] * fl["example_share"]
+        assert sum(v["total"] for v in fl["per_model"].values()) \
+            == fl["total"] == out["fluctuate"]["total"]
+    assert out["fluctuate"]["violation_rate"] \
+        > out["fluctuate_off"]["violation_rate"]
     # with the measured factors, gpulet+int may admit less, down to none
     assert 0 <= out["gpulet_int_max_scale"] <= out["elastic_max_scale"]
     assert set(out["replays"]) == {"gpulet", "gpulet+int"}

@@ -13,6 +13,7 @@ each other.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from pathlib import Path
 from types import SimpleNamespace
@@ -181,10 +182,36 @@ def streaming(S):
             S.fabric.build_stream_trace_soa(scn, S.profs, 3.0, seed=7))
 
 
-def serve(S, case, node_workers: int | None = None):
-    """(FabricMetrics, RequestTrace, fabric) of ``case`` on side ``S``."""
+# each case, and what it must have exercised on the port's side
+CASES = {
+    "sweep-1n": (sweep(1), lambda fm: fm.stats.dispatched),
+    "sweep-2n": (sweep(2), lambda fm: len(fm.per_node) == 2),
+    "failure-drain": (failure_drain, lambda fm: fm.failed_over > 0),
+    "migrations": (migrations, lambda fm: fm.migrations > 0),
+    "autoscale": (autoscale, lambda fm: any(
+        e.action == "add" for e in fm.scale_events)),
+    "mixed-dag": (mixed_dag, lambda fm: fm.jobs is not None
+                  and fm.jobs.jobs > 0),
+    "streaming": (streaming, lambda fm: fm.fleet.completed > 0),
+}
+
+
+def interference_off(S):
+    """Side ``S`` whose every fabric is built with interference off."""
+    fabric = SimpleNamespace(**vars(S.fabric))
+    fabric.FabricConfig = functools.partial(S.fabric.FabricConfig,
+                                            interference=False)
+    return SimpleNamespace(**{**vars(S), "name": f"{S.name}, off",
+                              "fabric": fabric})
+
+
+def serve(S, case, node_workers: int | None = None, prepare=None):
+    """(FabricMetrics, RequestTrace, fabric) of ``case`` on side ``S``;
+    ``prepare(fabric)`` runs after the fabric is built, before it serves."""
     fabric, trace = case(S)
     if node_workers is not None:
         fabric.cfg.node_workers = node_workers
+    if prepare is not None:
+        prepare(fabric)
     fm = fabric.serve_trace(trace)
     return fm, trace, fabric
