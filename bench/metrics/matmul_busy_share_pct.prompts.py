@@ -1,0 +1,9 @@
+"""``matmul_busy_share_pct`` in the cells whose end-to-end metrics leave
+latency out: the same reader, moving ``goodput_rps`` there."""
+from bench import spec
+
+_read = spec.reader("matmul_busy_share_pct")
+
+
+def read(run):
+    return _read(run)

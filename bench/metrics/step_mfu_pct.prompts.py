@@ -1,0 +1,9 @@
+"""``step_mfu_pct`` in the cells whose end-to-end metrics leave latency
+out: the same reader, moving ``goodput_rps`` there."""
+from bench import spec
+
+_read = spec.reader("step_mfu_pct")
+
+
+def read(run):
+    return _read(run)
