@@ -43,6 +43,7 @@ from torch import nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Embed, _param, make_norm
+from repro_torch.obs import host
 
 # arch types the port serves
 SERVED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -103,11 +104,20 @@ class Model(nn.Module):
         return x @ (self.head if self.cfg.arch_type == "audio"
                     else self.embed.head)
 
+    def _logits(self, x):
+        """The final norm and the head."""
+        rec = host.on and host.open("head")
+        logits = self._head(self.final_norm(x))
+        if rec:
+            host.close()
+        return logits
+
     def _embed(self, tokens):
         return F.embedding(tokens.long(), self.embed.tok)
 
     def _embed_inputs(self, tokens, patch_embeds, frame_embeds):
         """The residual stream's input (B, S, D) and its positions (B, S)."""
+        rec = host.on and host.open("embed")
         if self.cfg.arch_type == "audio":
             if frame_embeds is None:
                 raise ValueError(f"{self.cfg.name} takes frame_embeds")
@@ -117,7 +127,20 @@ class Model(nn.Module):
             if self.cfg.arch_type == "vlm" and patch_embeds is not None:
                 x = torch.cat([patch_embeds.to(self.dtype), x], dim=1)
         b, s = x.shape[:2]
-        return x, torch.arange(s, device=x.device).expand(b, s)
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        if rec:
+            host.close()
+        return x, positions
+
+    def _rows(self, tokens, patch_embeds, frame_embeds) -> tuple[int, int]:
+        """(batch, positions) of a step's inputs, a VLM's patches
+        counted."""
+        x = frame_embeds if self.cfg.arch_type == "audio" else tokens
+        if x is None:  # refused by _embed_inputs
+            return 0, 0
+        n = (patch_embeds.shape[1] if self.cfg.arch_type == "vlm"
+             and patch_embeds is not None else 0)
+        return x.shape[0], x.shape[1] + n
 
     def forward(self, tokens=None, *, patch_embeds=None, frame_embeds=None,
                 window_override=None, remat: bool = False,
@@ -126,11 +149,15 @@ class Model(nn.Module):
         VLM's patches; with ``with_aux``, (logits, the summed MoE aux loss,
         an fp32 scalar).  ``remat`` recomputes each block in the
         backward."""
-        x, positions = self._embed_inputs(tokens, patch_embeds, frame_embeds)
-        x, _, aux = tfm.stack_apply_seq(self.layers, x, self.cfg, positions,
-                                        window_override=window_override,
-                                        remat=remat, with_aux=with_aux)
-        logits = self._head(self.final_norm(x))
+        with host.step("forward", *self._rows(tokens, patch_embeds,
+                                              frame_embeds)):
+            x, positions = self._embed_inputs(tokens, patch_embeds,
+                                              frame_embeds)
+            x, _, aux = tfm.stack_apply_seq(
+                self.layers, x, self.cfg, positions,
+                window_override=window_override, remat=remat,
+                with_aux=with_aux)
+            logits = self._logits(x)
         return (logits, aux) if with_aux else logits
 
     def loss_fn(self, batch: dict, *, remat: bool = True):
@@ -165,10 +192,11 @@ class Model(nn.Module):
         hybrid's attention layers cap it at ``local_window``) or the SSM /
         RG-LRU state, all zero."""
         size = min(max_len, window) if window else max_len
-        return {"layers": [
-            tfm.init_layer_cache(kind, self.cfg, batch, size,
-                                 device=self.device, dtype=self.dtype)
-            for kind in self.cfg.layer_types()], "len": 0}
+        with host.init_cache():
+            return {"layers": [
+                tfm.init_layer_cache(kind, self.cfg, batch, size,
+                                     device=self.device, dtype=self.dtype)
+                for kind in self.cfg.layer_types()], "len": 0}
 
     # ---------------------------------------------------------- serving ----
 
@@ -178,11 +206,13 @@ class Model(nn.Module):
         if cache["len"] != 0:
             raise ValueError("prefill needs an empty cache; continue a "
                              "sequence with decode_step")
-        x, positions = self._embed_inputs(tokens, patch_embeds, None)
-        s = x.shape[1]
-        x, layers, _ = tfm.stack_apply_seq(self.layers, x, self.cfg,
-                                           positions, caches=cache["layers"])
-        logits = self._head(self.final_norm(x[:, -1:]))
+        with host.step("prefill", *self._rows(tokens, patch_embeds, None)):
+            x, positions = self._embed_inputs(tokens, patch_embeds, None)
+            s = x.shape[1]
+            x, layers, _ = tfm.stack_apply_seq(self.layers, x, self.cfg,
+                                               positions,
+                                               caches=cache["layers"])
+            logits = self._logits(x[:, -1:])
         return logits, {"layers": layers, "len": s}
 
     def decode_step(self, cache, tokens):
@@ -190,8 +220,12 @@ class Model(nn.Module):
         if not self.cfg.has_decoder:
             raise ValueError(f"{self.cfg.name} is encoder-only: it has no "
                              "decode step")
-        x = self._embed(tokens)
-        x, layers = tfm.stack_apply_step(self.layers, x, self.cfg,
-                                         cache["layers"], cache["len"])
-        logits = self._head(self.final_norm(x))
+        with host.step("decode", tokens.shape[0], cache["len"] + 1):
+            rec = host.on and host.open("embed")
+            x = self._embed(tokens)
+            if rec:
+                host.close()
+            x, layers = tfm.stack_apply_step(self.layers, x, self.cfg,
+                                             cache["layers"], cache["len"])
+            logits = self._logits(x)
         return logits, {"layers": layers, "len": cache["len"] + 1}

@@ -41,6 +41,7 @@ from repro_torch.models.config import ATTN_KINDS, ModelConfig
 from repro_torch.models.layers import (MLP, Attention, apply_rope,
                                        attention_decode, attention_full,
                                        make_norm)
+from repro_torch.obs import host
 
 KINDS = ATTN_KINDS + ("ssm", "rglru")
 
@@ -129,11 +130,20 @@ def _attention_seq(attn: Attention, x, cfg: ModelConfig, positions, window,
                    cache=None):
     """Full-sequence attention (prefill).  Returns (out, cache)."""
     q, k, v = attn.project(x)
+    rec = host.on and host.open("rope")
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if rec:
+        host.close()
+    rec = host.on and host.open("flash")
     out = attention_full(q, k, v, causal=cfg.causal, window=window)
+    if rec:
+        host.close()
     if cache is not None:
+        rec = host.on and host.open("ring_write")
         _ring_write(cache, k, v, start=0)
+        if rec:
+            host.close()
     return attn.out(out), cache
 
 
@@ -143,10 +153,19 @@ def _attention_step(attn: Attention, x, cfg: ModelConfig, cache,
     positions: (B, 1) = cache_len; n_valid: (B,) int32 valid slots after
     this token's write."""
     q, k, v = attn.project(x)
+    rec = host.on and host.open("rope")
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if rec:
+        host.close()
+    rec = host.on and host.open("ring_write")
     _ring_write(cache, k, v, start=cache_len)
+    if rec:
+        host.close()
+    rec = host.on and host.open("decode_attention")
     out = attention_decode(q, cache["k"], cache["v"], n_valid, window=window)
+    if rec:
+        host.close()
     return attn.out(out), cache
 
 
@@ -165,11 +184,21 @@ def _feed_forward(block: Block, x, kind: str, with_aux: bool = False):
     training term) with ``with_aux`` on an MoE block, else None."""
     if kind == "ssm":
         return x, None
+    rec = host.on and host.open("norm")
     h = block.ln2(x)
+    if rec:
+        host.close()
     if kind == "moe":
+        rec = host.on and host.open("moe")
         y, aux = block.moe(h, with_aux)
+        if rec:
+            host.close()
         return x + y, aux
-    return x + block.mlp(h), None
+    rec = host.on and host.open("mlp")
+    y = block.mlp(h)
+    if rec:
+        host.close()
+    return x + y, None
 
 
 def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
@@ -178,17 +207,26 @@ def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
     kind's state in ``cache`` is replaced by the state after the sequence;
     aux is the MoE aux loss with ``with_aux`` on an MoE block, else
     None."""
+    rec = host.on and host.open("norm")
     h = block.ln1(x)
+    if rec:
+        host.close()
     if kind in ATTN_KINDS:
+        rec = host.on and host.open("attention")
         out, cache = _attention_seq(block.attn, h, cfg, positions,
                                     _window(kind, cfg, window_override),
                                     cache)
+        if rec:
+            host.close()
     else:
         apply = (ssm_mod.ssm_apply if kind == "ssm"
                  else rglru_mod.rglru_apply)
+        rec = host.on and host.open(kind)
         out, state = apply(getattr(block, kind), h, cfg, cache)
         if cache is not None:
             cache.update(state)
+        if rec:
+            host.close()
     x, aux = _feed_forward(block, x + out, kind, with_aux)
     return x, cache, aux
 
@@ -197,16 +235,25 @@ def block_apply_step(block: Block, x, kind: str, cfg: ModelConfig, cache,
                      cache_len: int, positions, n_valid,
                      window_override=None):
     """One-token decode block.  Returns (x, cache)."""
+    rec = host.on and host.open("norm")
     h = block.ln1(x)
+    if rec:
+        host.close()
     if kind in ATTN_KINDS:
+        rec = host.on and host.open("attention")
         out, cache = _attention_step(block.attn, h, cfg, cache, cache_len,
                                      positions, n_valid,
                                      _window(kind, cfg, window_override))
+        if rec:
+            host.close()
     else:
         step = (ssm_mod.ssm_decode_step if kind == "ssm"
                 else rglru_mod.rglru_decode_step)
+        rec = host.on and host.open(kind)
         out, state = step(getattr(block, kind), h, cfg, cache)
         cache.update(state)
+        if rec:
+            host.close()
     return _feed_forward(block, x + out, kind)[0], cache
 
 
@@ -228,6 +275,7 @@ def stack_apply_seq(layers: nn.ModuleList, x, cfg: ModelConfig, positions,
         args = (block, x, kinds[i], cfg, positions,
                 None if caches is None else caches[i], window_override,
                 with_aux)
+        rec = host.on and host.open("block", i, kinds[i])
         if remat:
             # the model draws no random numbers: no RNG state to replay
             x, _, a = torch.utils.checkpoint.checkpoint(
@@ -235,6 +283,8 @@ def stack_apply_seq(layers: nn.ModuleList, x, cfg: ModelConfig, positions,
                 preserve_rng_state=False)
         else:
             x, _, a = block_apply_seq(*args)
+        if rec:
+            host.close()
         if a is not None:
             aux = aux + a
     return x, caches, aux
@@ -255,7 +305,10 @@ def stack_apply_step(layers: nn.ModuleList, x, cfg: ModelConfig, caches,
     n_valid = torch.full((b,), min(cache_len + 1, size), dtype=torch.int32,
                          device=x.device)
     for i, block in enumerate(layers):
+        rec = host.on and host.open("block", i, kinds[i])
         x, _ = block_apply_step(block, x, kinds[i], cfg, caches[i],
                                 cache_len, positions, n_valid,
                                 window_override)
+        if rec:
+            host.close()
     return x, caches

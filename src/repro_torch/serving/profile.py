@@ -18,9 +18,12 @@ forward of the batch (``--prompt-len`` frames a clip) and, on the card,
 ``--steps`` replays of that forward captured as a CUDA graph.  For each window it prints one JSON line: host
 wall time (synchronised), device busy time (the union of the kernels'
 intervals on the card), the device's idle share of the wall time, the
-number of kernels, the kernels with the most device time, and each of
-the port's own kernels that ran (count, ms, and us a call).  The traces go
-to ``--trace-dir`` as Chrome traces when it is given.
+number of kernels, the kernels with the most device time, each of
+the port's own kernels that ran (count, ms, and us a call), and the
+port's host spans of the window (``host_spans``: per span name of
+``repro_torch.obs.host``, its count and its host self time in ms a step,
+its duration less its children's; none in a graph's replays).  The traces
+go to ``--trace-dir`` as Chrome traces when it is given.
 
 Device numbers need the card; on ``--device cpu`` the script reports the
 host wall time only and names the device numbers "not measured".
@@ -41,6 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import _build
 from repro_torch.models import frontend
+from repro_torch.obs import host
 from repro_torch.serving.executor import _sync, build_model, depth_reduction
 
 # The hand-written kernels live in anonymous namespaces (ssd_bf16_kernel in
@@ -92,6 +96,22 @@ def window_report(name: str, prof, wall_s: float, steps: int,
     return out
 
 
+def host_spans(spans, since: float, steps: int) -> dict:
+    """Per name of the spans opened from ``since`` on: their count and
+    their host self time in ms a step."""
+    inner = [0.0] * len(spans)
+    for s in spans:
+        if s.parent is not None:
+            inner[s.parent] += s.end - s.start
+    out = {}
+    for s, covered in zip(spans, inner):
+        if s.start >= since:
+            v = out.setdefault(s.name, {"count": 0, "self_ms_per_step": 0.0})
+            v["count"] += 1
+            v["self_ms_per_step"] += (s.end - s.start - covered) * 1e3 / steps
+    return out
+
+
 def traced(name: str, n: int, fn, activities, dev, trace_dir) -> dict:
     """One profiler window around ``fn()``: its report."""
     with profile(activities=activities) as prof:
@@ -102,7 +122,9 @@ def traced(name: str, n: int, fn, activities, dev, trace_dir) -> dict:
     if trace_dir:
         Path(trace_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(trace_dir) / f"{name}.json"))
-    return window_report(name, prof, wall, n)
+    rep = window_report(name, prof, wall, n)
+    rep["host_spans"] = host_spans(host.spans(), t0, n)
+    return rep
 
 
 @torch.inference_mode()
@@ -196,7 +218,9 @@ def graph_window(name: str, model, inputs, steps: int, activities,
     graph.reset()
     if trace_dir:
         prof.export_chrome_trace(str(Path(trace_dir) / f"{name}.json"))
-    return window_report(name, prof, wall, steps)
+    rep = window_report(name, prof, wall, steps)
+    rep["host_spans"] = host_spans(host.spans(), t0, steps)
+    return rep
 
 
 def main(argv=None) -> list[dict]:
