@@ -8,7 +8,7 @@ Phases, in order; the first failure ends the run with a nonzero exit:
 1. device: the card's name, count and ``nvidia-smi`` name / power limit;
    TF32 off for matmuls and cuDNN, so fp32 means fp32;
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` (the four TPU
-   kernels' counterparts, the flash and SSD backward passes and the
+   kernels' counterparts, the flash and SSD backward passes, RoPE and the
    partition probe) with
    ``nvcc`` (sm_90a), in parallel, and ``ptxas``'s register / spill
    report of every kernel instantiation; then, from ``cuobjdump -sass``,
@@ -29,7 +29,10 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    1000, 512 and the chunk edges 1, 63, 64, 65, with and without an
    initial state, B / C as slices of one projection) and the RG-LRU scan
    (the same, and S 4096);
-   and deepseek-moe-16b's (16 query and 16 KV heads);
+   and deepseek-moe-16b's (16 query and 16 KV heads); RoPE of q and k at
+   every served head shape (bf16 and fp32; a 1000-token prefill, a decode
+   step at position 3071, a VLM's text behind 1024 patches), within 1 ulp
+   of two plain calls (``check_bits``: the same fp32 operations);
    then times on the card (CUDA events, inputs rotated past the 50 MB L2)
    of each kernel, its plain version and, for attention, one PyTorch call
    as a yardstick (SDPA, never used by the port), beside the least time
@@ -61,7 +64,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    logits finite, and each kernel's launch count (set to 0 before each
    model's serve, read after it) exactly one per layer of its kind per
    prefill (or encoder forward) batch (flash, SSD scan, RG-LRU scan) or
-   per decode step (decode attention); first the dry run
+   per decode step (decode attention), RoPE once per attention layer in
+   both; first the dry run
    (``launch/dryrun.py --all``: every (arch x shape) step traced on the
    ``meta`` device, started as a host process of its own after phase 1)
    is read, checked (``done: 38 ok, 2 skipped, 0 failed``) and printed as
@@ -144,7 +148,10 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    divided by each row's RMS, ``check_grad``; the fp32 cases at S 1000
    also against the plain version in fp64) and the RG-LRU backward (its
    own entry: the reverse recurrence in one launch) against autograd of
-   the plain recurrence (S 1000 and 4096, with and without h0), both while
+   the plain recurrence (S 1000 and 4096, with and without h0) and RoPE's
+   backward (``ops.rope`` under grad, one launch each way, at
+   recurrentgemma-2b's heads, bf16 and fp32, S 1024, 2100 and behind an
+   offset, within 1 ulp of autograd of the plain version), all while
    the CPU computes
    its side of one fp32 train step of a 3-layer recurrentgemma-2b at full
    width over 2100 tokens, card against CPU (loss, every gradient, the
@@ -166,8 +173,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    B4 x S1024, for each of the two: every loss and grad norm finite, the
    last loss below the first, and each kernel's launch count (set to 0
    before, read after) exactly the path's: recurrentgemma-2b per step 16
-   flash forwards (8 layers, each recomputed under remat), 8 flash
-   backwards, 36 RG-LRU scans (18 layers, each recomputed) and 18 RG-LRU
+   flash forwards and 16 RoPE launches (8 layers, each recomputed under
+   remat), 8 flash and 8 RoPE backwards, 36 RG-LRU scans (18 layers, each recomputed) and 18 RG-LRU
    backwards, no decode or SSD scan; mamba2-780m per step 96 SSD scans
    (48 layers, each recomputed) and 48 SSD backwards, nothing else; and
    one more step of each traced by the profiler (device busy, kernel time
@@ -276,7 +283,8 @@ COMMITTED_REPLAY = (
     "--replay", "--fluctuate", "--fleet", FLEET)
 CORUN_CARVE, CORUN_BATCH = 40, 8  # the co-run subset: 56 + 76 SMs, batch 8
 MIN_FACTOR = 0.95  # a co-run faster than solo by more than this is a fault
-KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
+KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+           "rope")
 # phase 8: the models trained at full width and depth, and their shape
 TRAIN_ARCH = "recurrentgemma-2b"
 SSM_ARCH = "mamba2-780m"
@@ -307,16 +315,19 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:67",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:38",
+    # no TPU kernel: the JAX package rotates in jnp and XLA fuses the chain
+    "rope": "none (src/repro/models/layers.py:62, jnp)",
 }
 # the backward passes: no TPU kernel has one; each backs the forward it
 # differentiates, from its own source (RG-LRU's is a second entry of the
 # forward's)
 REPLACES.update(flash_attention_backward=REPLACES["flash_attention"],
                 ssd_scan_backward=REPLACES["ssd_scan"],
-                rglru_scan_backward=REPLACES["rglru_scan"])
+                rglru_scan_backward=REPLACES["rglru_scan"],
+                rope_backward=REPLACES["rope"])
 SOURCE = {"flash_attention_backward": "flash_attention_bwd",
           "ssd_scan_backward": "ssd_scan_bwd",
-          "rglru_scan_backward": "rglru_scan"}
+          "rglru_scan_backward": "rglru_scan", "rope_backward": "rope"}
 
 
 def log(*args):
@@ -663,6 +674,56 @@ def kernels_scans(gen, errs):
                        1.0))
 
 
+def check_bits(name, got, want) -> float:
+    """The RoPE kernel repeats its plain version's fp32 arithmetic rounding
+    for rounding: raise unless every element is within 1 unit in the last
+    place of the output's dtype (logged: how many differ at all).  Returns
+    the max abs error."""
+    as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    ulps = (got.view(as_int[got.dtype]).long()
+            - want.view(as_int[want.dtype]).long()).abs()
+    max_err = float((got.float() - want.float()).abs().max())
+    differ = int((ulps > 0).sum())
+    log(f"  {name}: max_abs_err {max_err:.3e}, {differ} of {ulps.numel()} "
+        f"elements differ, by at most {int(ulps.max())} ulp")
+    if int(ulps.max()) > 1 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version by more than 1 ulp")
+    return max_err
+
+
+def rope_positions(where: str, b: int, s: int):
+    """A prefill's arange shared by the rows, a decode step at a cache of
+    3071, or a VLM's text behind its 1024 patches."""
+    if where == "prefill":
+        return torch.arange(s, device="cuda").expand(b, s)
+    if where == "decode":
+        return torch.full((b, s), 3071, dtype=torch.int64, device="cuda")
+    return torch.arange(1024, 1024 + s, device="cuda").expand(b, s)
+
+
+def kernels_rope(gen, errs):
+    """RoPE against two plain calls at every served head shape, both
+    dtypes, a prefill, a decode step and a VLM's offset."""
+    from repro_torch.kernels import rope as rp
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        for path, hd in HEADS.items():
+            for where, b, s in (("prefill", 2, 1000), ("decode", 4, 1),
+                                ("offset", 2, 77)):
+                q = _randn(gen, b, s, hd.h, hd.dh, dtype=dtype)
+                k = _randn(gen, b, s, hd.hkv, hd.dh, dtype=dtype)
+                pos = rope_positions(where, b, s)
+                got = rp.rope_cuda(q, k, pos, 10_000.0)
+                want = rp.rope_torch(q, k, pos, 10_000.0)
+                torch.cuda.synchronize()
+                for part, g, w in zip("qk", got, want):
+                    errs["rope"] = max(errs["rope"], check_bits(
+                        f"rope {tag} {path} {where} B{b} S{s} H{hd.h}/"
+                        f"{hd.hkv} Dh{hd.dh} {part}", g, w))
+
+
 def phase_kernels() -> dict:
     """Kernels vs plain versions, then times.  Returns (name, path) ->
     record."""
@@ -670,7 +731,9 @@ def phase_kernels() -> dict:
 
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
+    from repro_torch.configs import get_config
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rope as rp
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models.layers import _repeat_kv
 
@@ -679,6 +742,7 @@ def phase_kernels() -> dict:
     errs = dict.fromkeys(KERNELS, 0.0)
     flash_inputs, decode_inputs = kernels_attention(gen, errs)
     kernels_scans(gen, errs)
+    kernels_rope(gen, errs)
 
     log("  times at the serving shapes (bf16 weights), card clock:")
     dtype = torch.bfloat16
@@ -752,6 +816,32 @@ def phase_kernels() -> dict:
 
     split_sweep(decode_inputs)
 
+    # RoPE: q and k of the serve's 1000-token batches of 4 (a VLM's behind
+    # its patches), positions shared by the rows as a prefill has them
+    for path, (h, hkv, dh, _, _, s, _) in HEADS.items():
+        b, theta = 4, get_config(path).rope_theta
+        cost = rp.cost(b, s, h, hkv, dh)
+        pos = rope_positions("prefill", b, s)
+        sets = copies(lambda: (_randn(gen, b, s, h, dh, dtype=dtype),
+                               _randn(gen, b, s, hkv, dh, dtype=dtype), pos),
+                      cost[1])
+
+        def kernel(q, k, p):
+            return rp.rope_cuda(q, k, p, theta)
+
+        ms = time_ms(kernel, sets, 100)
+        dev_ms = device_ms(kernel, sets, 100)
+        plain_ms = time_ms(lambda q, k, p: rp.rope_torch(q, k, p, theta),
+                           sets, 20)
+        plain_dev = device_ms(lambda q, k, p: rp.rope_torch(q, k, p, theta),
+                              sets, 20)
+        records["rope", path] = record(
+            "rope", path, f"bf16 B{b} S{s} H{h} Hkv{hkv} Dh{dh} q and k",
+            errs["rope"], ms, plain_ms, bound_ms(cost, dtype), None)
+        records["rope", path].update(device_ms=dev_ms,
+                                     plain_device_ms=plain_dev)
+        del sets
+
     # SSD scan: mamba2's prefill, bf16 x / B / C, fp32 dt and state
     b, s, h, p, n = 4, 1000, 48, 64, 128
     cost = ssd.cost(b, s, h, p, n, with_h0=True)
@@ -802,6 +892,8 @@ def phase_kernels() -> dict:
             lib += f"; queued on the card: kernel {r['device_ms']:.4f} ms"
         if "library_device_ms" in r:
             lib += f", library {r['library_device_ms']:.4f} ms"
+        if "plain_device_ms" in r:
+            lib += f", plain {r['plain_device_ms']:.4f} ms"
         log(f"  {r['name']} ({r['path']}) [{r['shape']}]: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib},"
             f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -844,9 +936,10 @@ def counters() -> dict:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rope as rp
     from repro_torch.kernels import ssd_scan as ssd
     return {"flash_attention": fl, "decode_attention": dec, "ssd_scan": ssd,
-            "rglru_scan": rg}
+            "rglru_scan": rg, "rope": rp}
 
 
 def n_attn(cfg) -> int:
@@ -857,12 +950,14 @@ def n_attn(cfg) -> int:
 
 def expected_launches(cfg, prefill_batches: int, decode_steps: int) -> dict:
     """One launch per layer of the kernel's kind per prefill batch (flash,
-    the scans) or per decode step (decode attention)."""
+    the scans) or per decode step (decode attention); RoPE once per
+    attention layer in both."""
     kinds = cfg.layer_types()
     return {"flash_attention": n_attn(cfg) * prefill_batches,
             "decode_attention": n_attn(cfg) * decode_steps,
             "ssd_scan": kinds.count("ssm") * prefill_batches,
-            "rglru_scan": kinds.count("rglru") * prefill_batches}
+            "rglru_scan": kinds.count("rglru") * prefill_batches,
+            "rope": n_attn(cfg) * (prefill_batches + decode_steps)}
 
 
 def moe_inputs(model) -> list:
@@ -1320,6 +1415,7 @@ def kernels_on_partition(part, records: dict, errs: dict):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rope as rp
     from repro_torch.kernels import ssd_scan as ssd
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1353,6 +1449,17 @@ def kernels_on_partition(part, records: dict, errs: dict):
         records["flash_attention", path]["partition_ms"] = time_on_part(
             lambda q, k, v: fl.flash_attention_cuda(q, k, v, **mask),
             sets, 30)
+        # RoPE on the same q and k, in the model's (B, S, H, Dh) layout
+        pos = rope_positions("prefill", b, s)
+        got = both(rp.rope_cuda, q.transpose(1, 2), k.transpose(1, 2), pos,
+                   10_000.0)
+        for part_name, g, w in zip("qk", got, rp.rope_torch(
+                q.transpose(1, 2), k.transpose(1, 2), pos, 10_000.0)):
+            errs["rope"] = max(errs["rope"], check_bits(
+                f"rope {tag} B{b} S{s} H{h}/{hkv} Dh{dh} {part_name}", g, w))
+        records["rope", path]["partition_ms"] = time_on_part(
+            lambda q, k, v: rp.rope_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                                         pos, 10_000.0), sets, 100)
         del sets
         if slots is None:
             continue  # an encoder: no decode step
@@ -1516,7 +1623,7 @@ def phase_partitions(records: dict, procs: dict):
     grid = pp.profile(log=lambda line: log("  " + line))
     counts = {k: m.launches for k, m in mods.items()}
     want = dict.fromkeys(KERNELS, 0)
-    want["decode_attention"] = grid_launches(grid)
+    want["decode_attention"] = want["rope"] = grid_launches(grid)
     log(f"  grid: {len(grid)} cells in {time.perf_counter() - t0:.1f} s; "
         f"launches {counts}, expected {want}")
     if counts != want:
@@ -1690,8 +1797,8 @@ def phase_interference(records: dict, grid: list):
         torch.cuda.empty_cache()
     counts = {k: m.launches for k, m in mods.items()}
     want = dict.fromkeys(KERNELS, 0)
-    want["decode_attention"] = 2 * sum(n_attn(get_config(arch))
-                                       for arch in captured)
+    want["decode_attention"] = want["rope"] = 2 * sum(
+        n_attn(get_config(arch)) for arch in captured)
     log(f"  co-run launches {counts}, expected {want}")
     if counts != want:
         raise AssertionError("the co-runs did not go through the decode "
@@ -1996,6 +2103,117 @@ def grads_ssd(gen):
             del args, dy, dh, got, want
 
 
+def plain_rope_grads(q, k, positions, gq, gk, theta):
+    """dq, dk by autograd of two ``apply_rope`` calls."""
+    from repro_torch.kernels import rope as rp
+    leaves = [t.detach().requires_grad_(True) for t in (q, k)]
+    outs = [rp.apply_rope(x, positions, theta) for x in leaves]
+    return torch.autograd.grad(outs, leaves, (gq, gk))
+
+
+def grads_rope(gen):
+    """RoPE's backward (``ops.rope`` under grad: the ``RoPE`` Function, one
+    forward and one backward launch) against autograd of the plain version
+    at recurrentgemma-2b's heads (H10 Hkv1 Dh256), bf16 and fp32: the
+    training batch, the parity step's 2100 tokens, and positions behind an
+    offset; within 1 ulp (``check_bits``: the same fp32 operations, the
+    sine negated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rope as rp
+    h, hkv, dh = HEADS[TRAIN_ARCH][:3]
+    theta = get_config(TRAIN_ARCH).rope_theta
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        for where, b, s in (("prefill", TRAIN_BATCH, TRAIN_SEQ),
+                            ("prefill", 1, 2100), ("offset", 2, 300)):
+            q, gq = (_randn(gen, b, s, h, dh, dtype=dtype) for _ in "qg")
+            k, gk = (_randn(gen, b, s, hkv, dh, dtype=dtype) for _ in "kg")
+            pos = rope_positions(where, b, s)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k)]
+            fwd, bwd = rp.launches, rp.bwd_launches
+            got = torch.autograd.grad(ops.rope(*leaves, pos, theta), leaves,
+                                      (gq, gk))
+            if (rp.launches, rp.bwd_launches) != (fwd + 1, bwd + 1):
+                raise AssertionError("ops.rope under grad did not launch "
+                                     "the kernel once each way")
+            want = plain_rope_grads(q, k, pos, gq, gk, theta)
+            torch.cuda.synchronize()
+            for what, g, w in zip(("dq", "dk"), got, want):
+                check_bits(f"rope backward {tag} {where} B{b} S{s} H{h}/"
+                           f"{hkv} Dh{dh} {what}", g, w)
+            del q, k, gq, gk, leaves, got, want
+
+
+def times_rope_train(gen, records):
+    """RoPE's forward and backward kernels at recurrentgemma-2b's training
+    shape (bf16, B4 S1024 H10 Hkv1 Dh256), each first held against its
+    plain version on one input set, then timed beside the plain version:
+    each alone and forward + backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rope as rp
+    b, s, (h, hkv, dh) = TRAIN_BATCH, TRAIN_SEQ, HEADS[TRAIN_ARCH][:3]
+    theta, dtype = get_config(TRAIN_ARCH).rope_theta, torch.bfloat16
+    cost = rp.cost(b, s, h, hkv, dh)  # the backward's is the forward's
+    pos = rope_positions("prefill", b, s)
+    sets = copies(lambda: (
+        _randn(gen, b, s, h, dh, dtype=dtype),
+        _randn(gen, b, s, hkv, dh, dtype=dtype),
+        _randn(gen, b, s, h, dh, dtype=dtype),
+        _randn(gen, b, s, hkv, dh, dtype=dtype)), 2 * cost[1])
+    shape = f"bf16 B{b} S{s} H{h} Hkv{hkv} Dh{dh} q and k"
+
+    def kernel_fwd(q, k, gq, gk):
+        return rp.rope_cuda(q, k, pos, theta)
+
+    def kernel_bwd(q, k, gq, gk):
+        return rp.rope_backward_cuda(gq, gk, pos, theta)
+
+    def kernel_both(q, k, gq, gk):
+        rp.rope_cuda(q, k, pos, theta)
+        return rp.rope_backward_cuda(gq, gk, pos, theta)
+
+    def plain_fwd(q, k, gq, gk):
+        return rp.rope_torch(q, k, pos, theta)
+
+    def plain_both(q, k, gq, gk):
+        return plain_rope_grads(q, k, pos, gq, gk, theta)
+
+    def backward_only(outs, leaves, gq, gk):
+        return torch.autograd.grad(outs, leaves, (gq, gk), retain_graph=True)
+
+    fwd_err = max(check_bits(f"rope forward at the training shape [{shape}]"
+                             f" {what}", g, w) for what, g, w in zip(
+        ("q", "k"), kernel_fwd(*sets[0]), plain_fwd(*sets[0])))
+    bwd_err = max(check_bits(f"rope backward at the training shape "
+                             f"[{shape}] {what}", g, w) for what, g, w in zip(
+        ("dq", "dk"), kernel_bwd(*sets[0]), plain_both(*sets[0])))
+    ms_fwd = time_ms(kernel_fwd, sets, 100)
+    ms_bwd = time_ms(kernel_bwd, sets, 100)
+    ms_both = time_ms(kernel_both, sets, 100)
+    plain_fwd_ms = time_ms(plain_fwd, sets, 20)
+    plain_both_ms = time_ms(plain_both, sets, 20)
+    graphs = []
+    for q, k, gq, gk in sets:
+        leaves = [t.detach().requires_grad_(True) for t in (q, k)]
+        graphs.append(([rp.apply_rope(x, pos, theta) for x in leaves],
+                       leaves, gq, gk))
+    plain_bwd_ms = time_ms(backward_only, graphs, 20)
+    del graphs
+    bound = bound_ms(cost, dtype)
+    records["rope", TRAIN_PATH] = record(
+        "rope", TRAIN_PATH, shape, fwd_err, ms_fwd, plain_fwd_ms, bound,
+        None)
+    records["rope_backward", TRAIN_PATH] = record(
+        "rope_backward", TRAIN_PATH, shape, bwd_err, ms_bwd, plain_bwd_ms,
+        bound, None, fwd_bwd_ms=ms_both, plain_fwd_bwd_ms=plain_both_ms)
+    log(f"  rope at the training shape [{shape}]: forward {ms_fwd:.4f} ms, "
+        f"backward {ms_bwd:.4f} ms (bound {bound[0]:.4f} each, {bound[1]}; "
+        f"plain {plain_fwd_ms:.4f} / {plain_bwd_ms:.4f} ms); forward + "
+        f"backward: kernels {ms_both:.4f} ms, plain {plain_both_ms:.4f} ms")
+    del sets
+
+
 def times_flash_train(gen, records):
     """The forward and backward kernels at recurrentgemma-2b's training
     shape (bf16, B4 S1024), each first held against its plain version on
@@ -2278,7 +2496,9 @@ def train_counters() -> dict:
             "rglru_scan_backward": (mods["rglru_scan"], "bwd_launches"),
             "decode_attention": (mods["decode_attention"], "launches"),
             "ssd_scan": (mods["ssd_scan"], "launches"),
-            "ssd_scan_backward": (mods["ssd_scan"], "bwd_launches")}
+            "ssd_scan_backward": (mods["ssd_scan"], "bwd_launches"),
+            "rope": (mods["rope"], "launches"),
+            "rope_backward": (mods["rope"], "bwd_launches")}
 
 
 def read_counts(names) -> dict:
@@ -2286,10 +2506,10 @@ def read_counts(names) -> dict:
 
 
 def expected_train_launches(cfg, steps: int) -> dict:
-    """Per step: each attention layer's flash forward twice (the forward
-    and its recompute under remat) and its backward once; each SSM layer's
-    SSD scan twice and its backward kernel once; each RG-LRU layer's scan
-    twice and its backward entry once."""
+    """Per step: each attention layer's flash forward and RoPE twice (the
+    forward and its recompute under remat) and their backwards once; each
+    SSM layer's SSD scan twice and its backward kernel once; each RG-LRU
+    layer's scan twice and its backward entry once."""
     kinds = cfg.layer_types()
     n_attn_layers, n_rglru = n_attn(cfg), kinds.count("rglru")
     n_ssm = kinds.count("ssm")
@@ -2298,7 +2518,9 @@ def expected_train_launches(cfg, steps: int) -> dict:
             "rglru_scan": 2 * n_rglru * steps,
             "rglru_scan_backward": n_rglru * steps,
             "decode_attention": 0, "ssd_scan": 2 * n_ssm * steps,
-            "ssd_scan_backward": n_ssm * steps}
+            "ssd_scan_backward": n_ssm * steps,
+            "rope": 2 * n_attn_layers * steps,
+            "rope_backward": n_attn_layers * steps}
 
 
 def train_parity(arch, beside):
@@ -2588,6 +2810,7 @@ def phase_train(records: dict):
             "the CPU's parity step):")
         timed(grads_flash, gen)
         timed(grads_rglru, gen)
+        timed(grads_rope, gen)
 
     def ssd_checks():
         log("  the SSD backward vs autograd of the plain version (beside "
@@ -2601,6 +2824,7 @@ def phase_train(records: dict):
             f"{seq} tokens:")
         timed(train_parity, arch, beside)
     timed(times_flash_train, gen, records)
+    timed(times_rope_train, gen, records)
     timed(times_rglru_train, gen, records)
     timed(times_ssd_train, gen, records)
     for arch in (TRAIN_ARCH, SSM_ARCH):
@@ -2647,7 +2871,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t0:.1f} s")
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "device_ms", "library_device_ms", "partition_sms",
+            "library_ms", "device_ms", "library_device_ms", "plain_device_ms",
+            "partition_sms",
             "partition_ms", "partition_max_abs_err", "fwd_bwd_ms",
             "plain_fwd_bwd_ms", "library_fwd_bwd_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

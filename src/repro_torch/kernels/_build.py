@@ -32,7 +32,8 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "ssd_scan", "ssd_scan_bwd", "rglru_scan", "partition_probe")
+           "ssd_scan", "ssd_scan_bwd", "rglru_scan", "rope",
+           "partition_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

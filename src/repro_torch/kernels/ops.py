@@ -12,17 +12,17 @@ the main path is on ``meta``: the executor, the trainer and the profilers
 build on the card unless told the CPU.  Any other device raises.
 
 Gradients: when grad mode is on and an input requires grad, a CUDA
-(or ``meta``) tensor's ``flash_attention``, ``ssd_scan`` and
-``rglru_scan`` go through a ``torch.autograd.Function`` whose backward is
-a kernel as well (``FlashAttention``, ``SSDScan``, ``RGLRUScan``).
-``ssd_scan`` and ``rglru_scan`` take their Function on the CPU too (the
-backward kernel's algorithm through the plain versions:
+(or ``meta``) tensor's ``flash_attention``, ``ssd_scan``, ``rglru_scan``
+and ``rope`` go through a ``torch.autograd.Function`` whose backward is
+a kernel as well (``FlashAttention``, ``SSDScan``, ``RGLRUScan``,
+``RoPE``).  ``ssd_scan`` and ``rglru_scan`` take their Function on the
+CPU too (the backward kernel's algorithm through the plain versions:
 ``ssd_scan_bwd_chunks``, the reverse scan), and a CPU ``flash_attention``
-is differentiated by autograd through its plain version.  Without grad
-the route is the one above.  Each kernel module's ``FORWARD`` and
-``BACKWARD`` map a device type to its entry; its CPU entries run inside
-``pricing.plain``, so the dry run's counters skip what a plain version
-does.
+or ``rope`` is differentiated by autograd through its plain version.
+Without grad the route is the one above.  Each kernel
+module's ``FORWARD`` and ``BACKWARD`` map a device type to its entry; its
+CPU entries run inside ``pricing.plain``, so the dry run's counters skip
+what a plain version does.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _rglru
+from repro_torch.kernels import rope as _rope
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -85,3 +86,15 @@ def rglru_scan(a, b, h0=None):
     if _wants_grad(a, b, h0):
         return _rglru.RGLRUScan.apply(a, b, h0)
     return _rglru.FORWARD[route](a, b, h0)
+
+
+def rope(q, k, positions, theta: float):
+    """q: (B, S, H, Dh); k: (B, S, Hkv, Dh); positions: (B, S) int64.
+
+    Returns q and k rotated (split-half RoPE in fp32, cast back to their
+    dtype), as two calls of the JAX ``apply_rope`` would; on the card in
+    one launch."""
+    route = _route(q, "rope")
+    if route != "cpu" and _wants_grad(q, k):
+        return _rope.RoPE.apply(q, k, positions, theta)
+    return _rope.FORWARD[route](q, k, positions, theta)

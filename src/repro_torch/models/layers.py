@@ -1,10 +1,12 @@
-"""Shared model layers: norms, rotary embeddings, GQA attention, MLPs.
+"""Shared model layers: norms, GQA attention, MLPs.
 
-PyTorch counterpart of the JAX package's ``models/layers.py``.  Every layer
-keeps the JAX parameter layout (``wq`` (d, H, Dh), ``wo`` (H, Dh, d),
-``w_up`` (d, d_ff), ``tok`` (V, d), ``head`` (d, V)), so weights carry across
-without transposes.  The dtype points match the JAX code: norms, RoPE and
-the SwiGLU gate compute in fp32 and cast back.
+PyTorch counterpart of the JAX package's ``models/layers.py``; its rotary
+embedding (``apply_rope``) is the plain version of the RoPE kernel, in
+``kernels/rope.py``.  Every layer keeps the JAX parameter layout (``wq``
+(d, H, Dh), ``wo`` (H, Dh, d), ``w_up`` (d, d_ff), ``tok`` (V, d), ``head``
+(d, V)), so weights carry across without transposes.  The dtype points
+match the JAX code: norms, RoPE and the SwiGLU gate compute in fp32 and
+cast back.
 
 Modules allocate their parameters with ``torch.empty`` on the given device
 and fill nothing: ``reset_parameters(generator)`` draws the JAX init's
@@ -82,25 +84,6 @@ class LayerNorm(nn.Module):
 def make_norm(kind: str):
     """The norm module class for ``ModelConfig.norm``."""
     return LayerNorm if kind == "layernorm" else RMSNorm
-
-
-# ----------------------------------------------------------------- rope ----
-
-
-def rope_freqs(head_dim: int, theta: float, device=None):
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / (theta ** exps)
-
-
-def apply_rope(x, positions, theta: float = 10_000.0):
-    """Split-half RoPE in fp32.  x: (..., S, H, Dh); positions: (..., S)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., :, None, None].float() * freqs   # (..., S, 1, Dh/2)
-    cos, sin = ang.cos(), ang.sin()
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
 
 
 # ------------------------------------------------------------ attention ----

@@ -34,13 +34,13 @@ import torch._dynamo  # noqa: F401
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ATTN_KINDS, ModelConfig
-from repro_torch.models.layers import (MLP, Attention, apply_rope,
-                                       attention_decode, attention_full,
-                                       make_norm)
+from repro_torch.models.layers import (MLP, Attention, attention_decode,
+                                       attention_full, make_norm)
 from repro_torch.obs import host
 
 KINDS = ATTN_KINDS + ("ssm", "rglru")
@@ -131,8 +131,7 @@ def _attention_seq(attn: Attention, x, cfg: ModelConfig, positions, window,
     """Full-sequence attention (prefill).  Returns (out, cache)."""
     q, k, v = attn.project(x)
     rec = host.on and host.open("rope")
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = ops.rope(q, k, positions, cfg.rope_theta)
     if rec:
         host.close()
     rec = host.on and host.open("flash")
@@ -154,8 +153,7 @@ def _attention_step(attn: Attention, x, cfg: ModelConfig, cache,
     this token's write."""
     q, k, v = attn.project(x)
     rec = host.on and host.open("rope")
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = ops.rope(q, k, positions, cfg.rope_theta)
     if rec:
         host.close()
     rec = host.on and host.open("ring_write")

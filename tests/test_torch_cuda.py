@@ -14,7 +14,9 @@ by each row's RMS over Dh, as ``chip_smoke.py`` checks them), the SSD scan
 are small in batch and length and real in head dim and group (every head
 dim and group the attention kernels are built for), and the scans run at
 the edges of their chunks (64 positions for SSD, 32 steps for RG-LRU);
-``chip_smoke.py`` checks the serving shapes.
+``chip_smoke.py`` checks the serving shapes.  The RoPE kernel is held to
+its plain version bit for bit: it repeats that version's fp32 arithmetic
+rounding for rounding (``csrc/rope.cu``).
 """
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import rglru_scan as trglru  # noqa: E402
+from repro_torch.kernels import rope as trope  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -873,3 +876,104 @@ def test_hybrid_train_step_on_the_card_matches_the_cpu(cuda):
     for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
         err = float((p.grad.cpu() - q.grad).abs().max())
         assert err <= 1e-3 * float(q.grad.abs().max()), name
+
+
+# ------------------------------------------------------------------ rope --
+
+#: head dim -> (query heads, key heads): GQA at every head dim the port
+#: serves (hubert-xlarge's 80 with as many key heads as query heads)
+ROPE_HEADS = {64: (8, 2), 80: (16, 16), 128: (32, 4), 160: (32, 8),
+              256: (10, 1)}
+
+
+def rope_positions(device, where, b, s):
+    """A prefill's arange shared by the rows (batch stride 0), a decode
+    step at a cache in the thousands, or a VLM's text behind its 1024
+    patches."""
+    if where == "prefill":
+        return torch.arange(s, device=device).expand(b, s)
+    if where == "decode":
+        return torch.full((b, s), 3071, dtype=torch.int64, device=device)
+    return torch.arange(1024, 1024 + s, device=device).expand(b, s)
+
+
+def check_rope(q, k, positions, theta=10_000.0):
+    """One call is one launch, and equals two plain calls bit for bit."""
+    before = trope.launches
+    got = trope.rope_cuda(q, k, positions, theta)
+    torch.cuda.synchronize()
+    assert trope.launches == before + 1
+    for g, x in zip(got, (q, k)):
+        want = trope.apply_rope(x, positions, theta)
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert g.is_contiguous()
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("where,s", [("prefill", 77), ("prefill", 1000),
+                                     ("decode", 1), ("offset", 300)])
+@pytest.mark.parametrize("dh", sorted(ROPE_HEADS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_kernel_equals_plain_version(cuda, dtype, dh, where, s):
+    rng = np.random.default_rng(40)
+    h, hkv = ROPE_HEADS[dh]
+    b = 4 if where == "decode" else 2
+    q = on(cuda, rng, b, s, h, dh).to(dtype)
+    k = on(cuda, rng, b, s, hkv, dh).to(dtype)
+    check_rope(q, k, rope_positions(cuda, where, b, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_kernel_reads_strided_and_unaligned_views(cuda, dtype):
+    """q and k as head slices of one tensor, positions of their own a row
+    (theta 1e6); then views one element off 16-byte alignment (one pair a
+    thread)."""
+    rng = np.random.default_rng(41)
+    qk = on(cuda, rng, 3, 130, 12, 128).to(dtype)
+    positions = torch.from_numpy(rng.integers(0, 40_000, (3, 130))).to(cuda)
+    check_rope(qk[:, :, :8], qk[:, :, 8:], positions, theta=1e6)
+    wide = on(cuda, rng, 3, 130, 12, 129).to(dtype)
+    check_rope(wide[:, :, :8, 1:], wide[:, :, 8:, 1:], positions)
+
+
+def test_rope_op_is_one_launch_for_q_and_k(cuda):
+    """``ops.rope`` without grad: one forward launch, no backward."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(42)
+    q = on(cuda, rng, 2, 50, 16, 80).bfloat16()
+    k = on(cuda, rng, 2, 50, 16, 80).bfloat16()
+    positions = rope_positions(cuda, "prefill", 2, 50)
+    fwd, bwd = trope.launches, trope.bwd_launches
+    for n in range(1, 4):
+        ops.rope(q, k, positions, 10_000.0)
+        assert (trope.launches, trope.bwd_launches) == (fwd + n, bwd)
+
+
+@pytest.mark.parametrize("where", ["prefill", "offset"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_backward_matches_autograd_of_plain_version(cuda, dtype, where):
+    """``ops.rope`` with grad goes through ``RoPE``: one forward and one
+    backward launch; the gradients (the rotation back) equal autograd of
+    the plain version bit for bit (the same products and sums, the sine
+    negated: exact)."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(43)
+    h, hkv = ROPE_HEADS[256]
+    q0 = on(cuda, rng, 2, 200, h, 256).to(dtype)
+    k0 = on(cuda, rng, 2, 200, hkv, 256).to(dtype)
+    gq = on(cuda, rng, 2, 200, h, 256).to(dtype)
+    gk = on(cuda, rng, 2, 200, hkv, 256).to(dtype)
+    positions = rope_positions(cuda, where, 2, 200)
+    leaves = [q0.clone().requires_grad_(), k0.clone().requires_grad_()]
+    fwd, bwd = trope.launches, trope.bwd_launches
+    out = ops.rope(*leaves, positions, 10_000.0)
+    got = torch.autograd.grad(out, leaves, (gq, gk))
+    torch.cuda.synchronize()
+    assert (trope.launches, trope.bwd_launches) == (fwd + 1, bwd + 1)
+    plain = [q0.clone().requires_grad_(), k0.clone().requires_grad_()]
+    want = torch.autograd.grad(
+        [trope.apply_rope(x, positions, 10_000.0) for x in plain], plain,
+        (gq, gk))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -3,7 +3,11 @@
 ``flash_attention_torch`` and ``decode_attention_torch`` (the plain
 PyTorch versions of the CUDA kernels) are held against the JAX package's
 Pallas kernels in interpret mode and against its pure-jnp oracles, on the
-same numpy inputs, at the tolerances of ``tests/test_kernels.py``.  The
+same numpy inputs, at the tolerances of ``tests/test_kernels.py``.
+``ops.rope``'s CPU route is two calls of the plain ``apply_rope``, held
+against the JAX ``apply_rope``; under grad it is autograd of the plain
+version, which the rotation back (the CUDA backward's algorithm) equals.
+The
 CUDA kernels themselves need the card: ``chip_smoke.py`` holds them against
 these plain versions there.  Shapes stay small: interpret mode is slow.
 """
@@ -18,6 +22,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref  # noqa: E402
+from repro.models.layers import apply_rope as jax_apply_rope  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as pallas_decode  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro_torch.configs import ARCH_IDS, NOT_YET_PORTED, get_config  # noqa: E402
@@ -25,6 +30,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.models.config import ATTN_KINDS  # noqa: E402
 from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import rope as trope  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -164,6 +170,79 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="no implementation"):
         ops.decode_attention(other, other, other,
                              torch.ones(1, dtype=torch.int32))
+
+
+#: (name, positions (B, S) of B 2 x S 6): a prefill's shared arange, a
+#: decode step at a long cache, a VLM's text behind 1024 patches
+ROPE_POSITIONS = {
+    "prefill": lambda: torch.arange(6).expand(2, 6),
+    "decode": lambda: torch.full((2, 6), 3071, dtype=torch.int64),
+    "offset": lambda: torch.arange(1024, 1030).expand(2, 6),
+}
+
+
+@pytest.mark.parametrize("where", sorted(ROPE_POSITIONS))
+@pytest.mark.parametrize("dh", [64, 80, 128, 160, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_cpu_route_is_the_plain_version(dtype, dh, where):
+    """On the CPU ``ops.rope`` is ``apply_rope`` of q and of k, bit for
+    bit, with no launch; both match the JAX ``apply_rope`` (GQA: 4 query
+    heads, 2 key heads)."""
+    (jq, tq), (jk, tk) = inputs(7, dtype, (2, 6, 4, dh), (2, 6, 2, dh))
+    positions = ROPE_POSITIONS[where]()
+    before = (trope.launches, trope.bwd_launches)
+    got_q, got_k = ops.rope(tq, tk, positions, 10_000.0)
+    assert (trope.launches, trope.bwd_launches) == before
+    for got, x, jx in ((got_q, tq, jq), (got_k, tk, jk)):
+        assert got.dtype == x.dtype and got.shape == x.shape
+        torch.testing.assert_close(
+            got, trope.apply_rope(x, positions, 10_000.0), rtol=0, atol=0)
+        want = jax_apply_rope(jx, jnp.asarray(positions.numpy()), 10_000.0)
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("where", sorted(ROPE_POSITIONS))
+def test_rope_backward_on_cpu_is_autograd_of_the_plain_version(where):
+    """Under grad the CPU's ``ops.rope`` is autograd of ``apply_rope``, not
+    the ``RoPE`` Function: output and gradients bit for bit, fp32, on a
+    random upstream gradient, with no launch.  The rotation by minus the
+    angle (the CUDA backward's algorithm) equals those gradients to fp32
+    tolerance."""
+    rng = np.random.default_rng(3)
+    q, k, gq, gk = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                    for shape in ((2, 6, 4, 80), (2, 6, 2, 80)) * 2)
+    positions = ROPE_POSITIONS[where]()
+    leaves = [q.clone().requires_grad_(), k.clone().requires_grad_()]
+    before = (trope.launches, trope.bwd_launches)
+    out = ops.rope(*leaves, positions, 10_000.0)
+    assert all("RoPE" not in type(o.grad_fn).__name__ for o in out)
+    got = torch.autograd.grad(out, leaves, (gq, gk))
+    assert (trope.launches, trope.bwd_launches) == before
+    plain = [q.clone().requires_grad_(), k.clone().requires_grad_()]
+    ref_out = [trope.apply_rope(x, positions, 10_000.0) for x in plain]
+    want = torch.autograd.grad(ref_out, plain, (gq, gk))
+    for o, r in zip(out, ref_out):
+        torch.testing.assert_close(o, r, rtol=0, atol=0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    back = trope.rope_torch(gq, gk, -positions, 10_000.0)
+    for g, w in zip(back, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_rope_wrapper_refuses_what_the_kernel_cannot_take():
+    """The CUDA wrapper refuses a CPU tensor, forward and backward; the op
+    refuses a device with no route."""
+    q, k = torch.zeros(1, 4, 2, 64), torch.zeros(1, 4, 1, 64)
+    positions = torch.arange(4).expand(1, 4)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        trope.rope_cuda(q, k, positions, 10_000.0)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        trope.rope_backward_cuda(q, k, positions, 10_000.0)
+    other = types.SimpleNamespace(device=torch.device("xpu"),
+                                  requires_grad=False)
+    with pytest.raises(ValueError, match="no implementation"):
+        ops.rope(other, other, positions, 10_000.0)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -53,6 +53,7 @@ from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ops, pricing  # noqa: E402
 from repro_torch.kernels import rglru_scan as trg  # noqa: E402
+from repro_torch.kernels import rope as trope  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.launch import dryrun, mesh as tmesh  # noqa: E402
 from repro_torch.launch import sharding as shr  # noqa: E402
@@ -419,11 +420,12 @@ def test_meta_trace_counts_what_a_cpu_run_does(arch, kind):
     n_attn = sum(k in ("attn_mlp", "moe", "attn") for k in kinds)
     calls = {k: v["calls"] for k, v in meta["kernels"].items()}
     if kind == "decode":
-        want = {"decode_attention": n_attn} if n_attn else {}
+        want = {"decode_attention": n_attn, "rope": n_attn} if n_attn else {}
     elif kind == "train":
         want = {"ssd_scan": 2 * len(kinds), "ssd_scan_backward": len(kinds)}
     else:
         want = {k: v for k, v in (("flash_attention", n_attn),
+                                  ("rope", n_attn),
                                   ("ssd_scan", kinds.count("ssm")),
                                   ("rglru_scan", kinds.count("rglru"))) if v}
     assert calls == want
@@ -549,8 +551,11 @@ def test_ops_price_meta_tensors():
         "ssd_scan": lambda on: ops.ssd_scan(on(xh), on(dt), on(a), on(bm),
                                             on(bm)),
         "rglru_scan": lambda on: ops.rglru_scan(on(a2), on(a2)),
+        "rope": lambda on: ops.rope(
+            on(q.transpose(1, 2)), on(k.transpose(1, 2)),
+            on(torch.arange(16).expand(1, 16)), 1e4),
     }
-    mods = (tflash, tdec, tssd, trg)
+    mods = (tflash, tdec, tssd, trg, trope)
     before = [m.launches for m in mods]
     for name, call in calls.items():
         with pricing.pricing() as ledger:
@@ -580,6 +585,16 @@ def _kernel_only_step(kernel):
         args = (cpu(2, 4, 64), cpu(2, 16, 2, 64), cpu(2, 16, 2, 64),
                 torch.tensor([16, 9], dtype=torch.int32))
         return lambda: ops.decode_attention(*args), args
+    if kernel.startswith("rope"):
+        q, k = cpu(2, 16, 4, 64), cpu(2, 16, 2, 64)
+        positions = torch.arange(16).expand(2, 16)
+        if kernel == "rope":
+            return lambda: ops.rope(q, k, positions, 1e4), (q, k)
+        q.requires_grad_()
+        qr, _ = ops.rope(q, k, positions, 1e4)
+        dq = torch.ones_like(qr)
+        return (lambda: torch.autograd.grad(qr, q, dq, retain_graph=True),
+                (qr, q, dq))
     args = (cpu(1, 70, 2, 64), cpu(1, 70, 2).abs(), -cpu(2).abs(),
             cpu(1, 70, 128), cpu(1, 70, 128))
     if kernel == "ssd_scan":
@@ -609,10 +624,28 @@ def test_the_flop_counter_skips_the_plain_versions(kernel):
         assert counted["bytes_outside_kernels"] == 0
 
 
+@pytest.mark.parametrize("kernel", ["rope", "rope_backward"])
+def test_the_byte_counter_skips_the_plain_rope(kernel):
+    """RoPE's plain version has no matmul for torch's FLOP counter to
+    count, but its chain has bytes: the dry run charges nothing for a CPU
+    step that is the plain version (the forward's bytes too), and counts
+    the same chain called outside ``pricing.plain``."""
+    step, arguments = _kernel_only_step(kernel)
+    counted = dryrun.trace(step, arguments)
+    assert counted["flops_outside_kernels"] == 0
+    assert counted["kernels"] == {}
+    if kernel == "rope":
+        assert counted["bytes_outside_kernels"] == 0
+    q = arguments[0] if kernel == "rope" else arguments[1].detach()
+    bare = dryrun.trace(lambda: trope.apply_rope(q, torch.arange(16), 1e4),
+                        (q,))
+    assert bare["bytes_outside_kernels"] > 0
+
+
 def test_meta_backward_through_the_functions():
     """Under grad a meta tensor goes through ``FlashAttention``,
-    ``SSDScan`` and ``RGLRUScan``: meta gradients of the inputs' shapes,
-    and each backward charged once."""
+    ``SSDScan``, ``RGLRUScan`` and ``RoPE``: meta gradients of the inputs'
+    shapes, and each backward charged once."""
     q, k = meta(2, 4, 32, 64), meta(2, 2, 32, 64)
     xh, dt, a = meta(2, 64, 2, 64), meta(2, 64, 2, dtype=torch.float32), \
         meta(2, dtype=torch.float32)
@@ -623,6 +656,9 @@ def test_meta_backward_through_the_functions():
         (lambda *t: ops.ssd_scan(*t)[0], (xh, dt, a, bm, bm),
          "ssd_scan_backward"),
         (lambda *t: ops.rglru_scan(*t)[0], (g, g), "rglru_scan_backward"),
+        (lambda *t: ops.rope(*t, torch.arange(32, device="meta").expand(
+            2, 32), 1e4)[0], (q.transpose(1, 2), k.transpose(1, 2)),
+         "rope_backward"),
     ]
     for fn, inputs, name in cases:
         leaves = [t.clone().requires_grad_(True) for t in inputs]
@@ -735,3 +771,18 @@ def test_rglru_cost_is_a_hand_count(with_h0):
     want = nbytes(a, h_seq, h_seq, h_last, a, a, h_last) + (
         nbytes(h0) if with_h0 else 0)
     assert trg.bwd_cost(bsz, s, w, with_h0=with_h0) == (4 * a.numel(), want)
+
+
+def test_rope_cost_is_a_hand_count():
+    """Six operations a rotated pair and one an angle; q and k read and
+    written once, the positions and the frequency table read once."""
+    b, s, h, hkv, dh = 2, 7, 4, 2, 80
+    q, k = meta(b, s, h, dh), meta(b, s, hkv, dh)
+    pos = torch.arange(s, device="meta").expand(b, s)
+    with pricing.pricing() as ledger:
+        qo, ko = ops.rope(q, k, pos, 1e4)
+    pairs = b * s * (h + hkv) * dh // 2
+    assert ledger == [("rope", 6 * pairs + b * s * dh // 2,
+                       nbytes(q, k, qo, ko) + 8 * b * s + 4 * dh // 2)]
+    assert trope.cost(b, s, h, hkv, dh, itemsize=4)[1] == (
+        nbytes(q, k, qo, ko) * 2 + 8 * b * s + 4 * dh // 2)
