@@ -1,17 +1,18 @@
 """Whether what the timed path served is right: the reference's verdict.
 
 After the window, a sample of the requests a side finished is drawn from
-the seed, the longest request among them always in it.  The reference
-(``reference/model.py``, float32, weights made again from the seed layer
-by layer) runs once over each sampled request's input, and each served
+the seed, the longest request among them always in it.  The reference (the
+entry's module, ``spec.reference``: ``reference/model.py`` unless the
+entry names another; float32, weights made again from the seed layer by
+layer) runs once over each sampled request's input, and each served
 token (a prefill's first token, an encoder's label of each frame) is
 scored by its gap: how far the reference's logit of that token lies below
 the reference's best logit at the same position.  The side's number is
 the widest gap over the sample, held to the configuration's ``max_gap``.
 Greedy tokens only, which is all this traffic serves.
 
-``control=True`` also runs the reference with float8 linear layers
-(``reference.model.fp8_mm``) and puts it in the program's place: the token
+``control=True`` also runs the reference with float8 linear layers (the
+module's ``fp8_mm``) and puts it in the program's place: the token
 it ranks first at each served position is scored by the same gap and
 judged by the same limit, so that a run of the control comes out not
 correct.
@@ -21,8 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bench import traffic, weights
-from bench.reference import model as ref_model
+from bench import spec, traffic, weights
 
 
 def sample(side, seconds: float, seed: int, key: int) -> np.ndarray:
@@ -64,6 +64,7 @@ def readings(side, seconds: float, seed: int, key: int,
         served.append(torch.as_tensor(
             np.stack([np.atleast_1d(side.outputs[int(r)]) for r in g]),
             device=dev).long())
+    ref_model = spec.reference(c)
     mms = (ref_model.plain_mm, ref_model.fp8_mm) if control else \
         (ref_model.plain_mm,)
     logits = ref_model.run(c, lambda i: weights.layer(c, i, dev, seed),

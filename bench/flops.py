@@ -8,7 +8,9 @@ head at the last position only, an encoder's at every frame; the head is
 counted at the padded width it is multiplied at.  Norms, RoPE and the
 elementwise passes are not counted.  ``flash_cost`` is one attention
 call's least work: its operations as above and its bytes, q, k and v read
-once and the output written once, in bf16.
+once and the output written once, in bf16.  An entry whose reference
+module (``spec.reference``) counts its own block (``step_flops``,
+``flash_cost``) gets that module's counts instead.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import json
 from pathlib import Path
 
 import numpy as np
+
+from bench import spec
 
 PEAKS = Path(__file__).resolve().parent / "peaks.json"
 
@@ -49,6 +53,9 @@ def attention_flops(c: dict, b: int, s: int, *, causal=None) -> int:
 
 def step_flops(c: dict, b: int, s: int, *, causal=None) -> int:
     """Matmul operations of one batch of ``b`` requests of length ``s``."""
+    own = getattr(spec.reference(c), "step_flops", None)
+    if own is not None:
+        return own(c, b, s, causal=causal)
     f, d, h, hkv, dh = _dims(c)
     tokens = b * s
     proj = 2 * tokens * d * dh * (2 * h + 2 * hkv)
@@ -62,6 +69,9 @@ def step_flops(c: dict, b: int, s: int, *, causal=None) -> int:
 
 def flash_cost(c: dict, b: int, s: int) -> tuple[int, int]:
     """(operations, bytes) of one layer's attention call."""
+    own = getattr(spec.reference(c), "flash_cost", None)
+    if own is not None:
+        return own(c, b, s)
     _, _, h, hkv, dh = _dims(c)
     return (attention_flops(c, b, s),
             2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh))

@@ -1,15 +1,19 @@
-"""The reference forward of a model, layer by layer.
+"""The reference forward of a model, layer by layer: the module an entry
+that names no ``reference`` takes (the interface: ``__init__.py``).
 
 ``c`` is a configuration file's model entry: ``fields``, the port's
 ``ModelConfig`` fields, read here as plain numbers.  Every layer is one
-pre-norm block (``leaves(c)``, ``apply(x, w, c, mm)``): attention (GQA,
-split-half RoPE, causal or not, optionally windowed) then an MLP (SwiGLU,
-or GELU with the tanh approximation), each added to the residual stream.
+pre-norm block (``layer_leaves(c, i)``, ``apply(x, w, c, mm)``):
+attention (GQA, split-half RoPE, causal or not, optionally windowed) then
+an MLP (SwiGLU, or GELU with the tanh approximation), each added to the
+residual stream.
 It is the block of the dense decoders (yi-9b) and of the audio encoder
 (hubert-xlarge) as the serving system defines them: no biases on the
 projections, RoPE in place of HuBERT's convolutional position embedding,
 the norm before each half.  Attention is computed row by row of the batch
-so that a (H, S, S) score tensor is the largest temporary.
+so that a (H, S, S) score tensor is the largest temporary.  Another
+family's reference takes the halves it shares from here (``attention``,
+``mlp``, ``norm``) and its own block to ``run(..., apply_layer=)``.
 
 ``run`` takes groups of equal-length requests and gives their logits over
 the first ``vocab_size`` columns: a decoder's at the last position (what a
@@ -72,20 +76,48 @@ def fp8_mm(x, w):
     return _fp8(x, -1) @ _fp8(w, 0)
 
 
-def leaves(c: dict) -> list:
+def attention_leaves(c: dict) -> list:
+    """The first norm's leaves and attention's projections."""
     f = c["fields"]
-    d, h, hkv, dh, ff = (f["d_model"], f["n_heads"], f["n_kv_heads"],
-                         head_dim(c), f["d_ff"])
+    d, h, hkv, dh = f["d_model"], f["n_heads"], f["n_kv_heads"], head_dim(c)
     s_in = f"normal:{d ** -0.5}"
-    out = norm_leaves(c, "ln1") + [
+    return norm_leaves(c, "ln1") + [
         ("attn.wq", (d, h, dh), s_in), ("attn.wk", (d, hkv, dh), s_in),
-        ("attn.wv", (d, hkv, dh), s_in), ("attn.wo", (h, dh, d), s_in),
-    ] + norm_leaves(c, "ln2") + [
-        ("mlp.w_up", (d, ff), s_in), ("mlp.w_down", (ff, d),
-                                      f"normal:{ff ** -0.5}")]
-    if field(c, "activation", "swiglu") == "swiglu":
-        out.append(("mlp.w_gate", (d, ff), s_in))
+        ("attn.wv", (d, hkv, dh), s_in), ("attn.wo", (h, dh, d), s_in)]
+
+
+def mlp_leaves(prefix: str, d: int, ff: int, swiglu: bool) -> list:
+    """An MLP's leaves, the port's order: up, down, then gate."""
+    out = [(f"{prefix}.w_up", (d, ff), f"normal:{d ** -0.5}"),
+           (f"{prefix}.w_down", (ff, d), f"normal:{ff ** -0.5}")]
+    if swiglu:
+        out.append((f"{prefix}.w_gate", (d, ff), f"normal:{d ** -0.5}"))
     return out
+
+
+def layer_leaves(c: dict, i: int) -> list:
+    """Every layer is the same block."""
+    f = c["fields"]
+    return attention_leaves(c) + norm_leaves(c, "ln2") + mlp_leaves(
+        "mlp", f["d_model"], f["d_ff"],
+        field(c, "activation", "swiglu") == "swiglu")
+
+
+def padded_vocab(c: dict) -> int:
+    return -(-c["fields"]["vocab_size"] // 256) * 256
+
+
+def top_leaves(c: dict) -> list:
+    """(name, shape, init) of the leaves outside the layers: the token
+    embedding and the head, or an encoder's head; the final norm."""
+    f = c["fields"]
+    d, vp = f["d_model"], padded_vocab(c)
+    if f.get("has_decoder", True):
+        out = [("embed.tok", (vp, d), "normal:0.02"),
+               ("embed.head", (d, vp), f"normal:{d ** -0.5}")]
+    else:
+        out = [("head", (d, vp), f"normal:{d ** -0.5}")]
+    return out + norm_leaves(c, "final_norm")
 
 
 def rope(x, theta: float):
@@ -121,7 +153,8 @@ def attend(q, k, v, causal: bool, window):
     return out
 
 
-def apply(x, w: dict, c: dict, mm):
+def attention(x, w: dict, c: dict, mm):
+    """``x`` plus the attention half of the block."""
     b, s, _ = x.shape
     f = c["fields"]
     hn = norm(x, w, "ln1", c)
@@ -130,32 +163,44 @@ def apply(x, w: dict, c: dict, mm):
     theta = f.get("rope_theta", 10_000.0)
     o = attend(rope(q, theta), rope(k, theta), v, f.get("causal", True),
                f.get("sliding_window"))
-    x = x + mm(o.flatten(2), w["attn.wo"].flatten(0, 1))
-    hn = norm(x, w, "ln2", c)
-    if f.get("activation", "swiglu") == "swiglu":
-        y = F.silu(mm(hn, w["mlp.w_gate"])) * mm(hn, w["mlp.w_up"])
+    return x + mm(o.flatten(2), w["attn.wo"].flatten(0, 1))
+
+
+def mlp(h, w: dict, prefix: str, activation: str, mm):
+    if activation == "swiglu":
+        y = F.silu(mm(h, w[f"{prefix}.w_gate"])) * mm(h, w[f"{prefix}.w_up"])
     else:
-        y = F.gelu(mm(hn, w["mlp.w_up"]), approximate="tanh")
-    return x + mm(y, w["mlp.w_down"])
+        y = F.gelu(mm(h, w[f"{prefix}.w_up"]), approximate="tanh")
+    return mm(y, w[f"{prefix}.w_down"])
+
+
+def apply(x, w: dict, c: dict, mm):
+    x = attention(x, w, c, mm)
+    return x + mlp(norm(x, w, "ln2", c), w, "mlp",
+                   field(c, "activation", "swiglu"), mm)
 
 
 @torch.inference_mode()
-def run(c: dict, layer_weights, top: dict, groups: list, mms=(plain_mm,)):
+def run(c: dict, layer_weights, top: dict, groups: list, mms=(plain_mm,),
+        *, apply_layer=None):
     """Logits (float32, ``vocab_size`` columns) of each group, for each
     rule of ``mms``: ``out[j][g]``.  A group is a decoder's token ids
-    (B, S) or an encoder's frame embeddings (B, S, d_model)."""
+    (B, S) or an encoder's frame embeddings (B, S, d_model).
+    ``apply_layer(i)`` is layer ``i``'s ``apply`` (another family's block
+    in this stack), this module's by default."""
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
-        return _run(c, layer_weights, top, groups, mms)
+        return _run(c, layer_weights, top, groups, mms,
+                    apply_layer or (lambda i: apply))
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = old
 
 
-def _run(c, layer_weights, top, groups, mms):
+def _run(c, layer_weights, top, groups, mms, apply_layer):
     decoder = field(c, "has_decoder", True)
     top = {k: v.float() for k, v in top.items()}
     if decoder:
@@ -166,8 +211,9 @@ def _run(c, layer_weights, top, groups, mms):
     del x0
     for i in range(c["fields"]["n_layers"]):
         w = {k: v.float() for k, v in layer_weights(i).items()}
+        block = apply_layer(i)
         for j, mm in enumerate(mms):
-            hs[j] = [apply(h, w, c, mm) for h in hs[j]]
+            hs[j] = [block(h, w, c, mm) for h in hs[j]]
         del w
     head = top["embed.head" if decoder else "head"]
     v = c["fields"]["vocab_size"]

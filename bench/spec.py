@@ -3,14 +3,18 @@
 A cell (an entry of ``workloads``) names a configuration and a traffic mix.
 The configuration's file is the one ``configs[].file`` gives; the traffic
 mix is ``traffic/<traffic>.json``; each metric is read by
-``metrics/<name>.py``.  Nothing here knows a cell, a model or a metric by
-name: a later cell brings its own files.
+``metrics/<name>.py``; each model entry's plain reference is the module its
+``reference`` names (``reference/model.py`` where it names none).  Nothing
+here knows a cell, a model or a metric by name: a later cell brings its
+own files.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
+import re
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent
@@ -85,3 +89,26 @@ def reader(metric: str):
     module = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(module)
     return module.read
+
+
+def reference(entry: dict):
+    """The plain reference module of a configuration's model ``entry``:
+    the file its ``reference`` names (a path under ``bench/``), loaded
+    once a process; ``bench.reference.model`` where it names none."""
+    if "reference" not in entry:
+        from bench.reference import model
+        return model
+    path = (ROOT / entry["reference"]).resolve()
+    if BENCH not in path.parents or path.suffix != ".py":
+        raise ValueError(f"reference {entry['reference']!r} is not a .py "
+                         "file under bench/")
+    return _load(path)
+
+
+@functools.cache
+def _load(path: Path):
+    name = re.sub(r"\W", "_", str(path.relative_to(ROOT)))
+    mod_spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(module)
+    return module
