@@ -1,0 +1,9 @@
+"""``matmul_busy_share_pct`` in granite.documents, moving
+``goodput_rps`` there: the same reader."""
+from bench import spec
+
+_read = spec.reader("matmul_busy_share_pct")
+
+
+def read(run):
+    return _read(run)

@@ -1,0 +1,9 @@
+"""``step_issue_us_per_layer`` in granite.documents, moving
+``goodput_rps`` there: the same reader."""
+from bench import spec
+
+_read = spec.reader("step_issue_us_per_layer")
+
+
+def read(run):
+    return _read(run)

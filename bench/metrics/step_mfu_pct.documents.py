@@ -1,0 +1,9 @@
+"""``step_mfu_pct`` in granite.documents, moving
+``goodput_rps`` there: the same reader."""
+from bench import spec
+
+_read = spec.reader("step_mfu_pct")
+
+
+def read(run):
+    return _read(run)

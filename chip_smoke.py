@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --granite    # granite's rows of phase 3 alone
 
 Phases, in order; the first failure ends the run with a nonzero exit:
 
@@ -28,7 +29,13 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    (H64 / Hkv 8, S 1000, 1032 slots), the SSD scan (bf16 and fp32 inputs, S
    1000, 512 and the chunk edges 1, 63, 64, 65, with and without an
    initial state, B / C as slices of one projection) and the RG-LRU scan
-   (the same, and S 4096);
+   (the same, and S 4096); granite-4.0-h-small's prefill at its cell's
+   cap: flash at H32 / Hkv 8, Dh 128, scale 1/128 at B2 S8192 and B8
+   S2048 (against the plain version a KV head at a time), the SSD scan at
+   B2 S8192 H128 P64 N128 and the dropless MoE's grouped expert products
+   (16,384 tokens x 10 choices over 72 experts, bit for bit a product an
+   expert), and decode attention at its heads and scale over 1032 slots,
+   timed beside their bounds;
    and deepseek-moe-16b's (16 query and 16 KV heads); RoPE of q and k at
    every served head shape (bf16 and fp32; a 1000-token prefill, a decode
    step at position 3071, a VLM's text behind 1024 patches), within 1 ulp
@@ -54,7 +61,8 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    there, and a difference at a gap above ``ROUTING_GAP`` fails;
 5. serve: ``repro_torch.serving.executor`` on yi-9b, mamba2-780m,
    recurrentgemma-2b, stablelm-12b, chatglm3-6b, deepseek-moe-16b,
-   hubert-xlarge and command-r-35b (64.8 GB of bf16 weights) at full width
+   hubert-xlarge, command-r-35b (64.8 GB of bf16 weights) and
+   granite-4.0-h-small (64.4 GB) at full width
    and depth, and internvl2-76b at full width
    and 24 of its 80 layers (``LAYERS``: 141 GB of bf16 weights do not fit
    the card), bf16: 8 requests, batch 4, prompts of 512 and 1000 tokens
@@ -65,7 +73,9 @@ Phases, in order; the first failure ends the run with a nonzero exit:
    model's serve, read after it) exactly one per layer of its kind per
    prefill (or encoder forward) batch (flash, SSD scan, RG-LRU scan) or
    per decode step (decode attention), RoPE once per attention layer in
-   both; first the dry run
+   both where the model has RoPE, and a dropless MoE layer's three
+   grouped expert products in both (granite: flash in 4 of its 40
+   layers, the SSD scan in the other 36); first the dry run
    (``launch/dryrun.py --all``: every (arch x shape) step traced on the
    ``meta`` device, started as a host process of its own after phase 1)
    is read, checked (``done: 38 ok, 2 skipped, 0 failed``) and printed as
@@ -207,6 +217,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import types
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -230,7 +241,7 @@ PARITY_REL = 1e-3  # model parity: max |card - cpu| <= 1e-3 * max |cpu|
 ROUTING_GAP = 1e-5
 SERVED = ("yi-9b", "mamba2-780m", "recurrentgemma-2b", "stablelm-12b",
           "chatglm3-6b", "deepseek-moe-16b", "hubert-xlarge", "internvl2-76b",
-          "command-r-35b")
+          "command-r-35b", "granite-4.0-h-small")
 # depth served where the full model does not fit the card (80 GB):
 # internvl2-76b's 80 layers are 141 GB of bf16 weights, 24 are 45.3 GB
 LAYERS = {"internvl2-76b": 24}
@@ -885,6 +896,8 @@ def phase_kernels() -> dict:
     records["rglru_scan", "recurrentgemma-2b"]["device_ms"] = dev_ms
     del sets
 
+    granite_rows(gen, records, errs)
+
     for r in records.values():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -898,6 +911,177 @@ def phase_kernels() -> dict:
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib},"
             f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return records
+
+
+def granite_rows(gen, records: dict, errs: dict):
+    """granite-4.0-h-small's prefill at its cell's cap (16,384 tokens):
+    flash attention at its head shape (H32 / Hkv 8, Dh 128, causal, no
+    RoPE) and stated scale 1/128 in the cell's two extreme batches (B2
+    S8192 and B8 S2048), the SSD scan at its shape (B2 S8192 H128 P64 N128,
+    from the zero state) and the dropless MoE's three grouped expert
+    products (16,384 tokens x 10 choices over 72 experts, d 4096, f 768;
+    ``models/moe.py::grouped_mm``, ``torch._grouped_mm``); and decode
+    attention at the same heads and scale over phase 5's caches (B4, 1032
+    slots).  Each against its plain version, timed, beside its bound in
+    ms; a time under the bound fails."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import moe
+    from repro_torch.models.layers import _repeat_kv
+
+    dtype = torch.bfloat16
+    h, hkv, dh, scale = 32, 8, 128, 1 / 128
+    group = h // hkv
+
+    def flash_inputs(b, s):
+        # the model's layout: (B, S, H, Dh) storage seen as (B, H, S, Dh)
+        return tuple(_randn(gen, b, s, n, dh, dtype=dtype).transpose(1, 2)
+                     for n in (h, hkv, hkv))
+
+    def kernel(q, k, v):
+        return fl.flash_attention_cuda(q, k, v, causal=True, scale=scale)
+
+    def plain(q, k, v):
+        # one KV head's queries at a time: B2 S8192's whole fp32 score
+        # tensor would take 17 GB
+        return torch.cat([fl.flash_attention_torch(
+            q[:, j * group:(j + 1) * group], k[:, j:j + 1], v[:, j:j + 1],
+            causal=True, scale=scale) for j in range(hkv)], dim=1)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale)
+
+    for b, s in ((2, 8192), (8, 2048)):
+        shape = f"bf16 B{b} H{h} Hkv{hkv} S{s} Dh{dh} causal scale 1/128"
+        cost = fl.cost(b, h, hkv, s, dh)
+        sets = copies(lambda: flash_inputs(b, s), cost[1])
+        err = check_close(f"flash {shape} (granite)", kernel(*sets[0]),
+                          plain(*sets[0]), dtype)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        lib_sets = [(q, _repeat_kv(k.transpose(1, 2), h).transpose(1, 2),
+                     _repeat_kv(v.transpose(1, 2), h).transpose(1, 2))
+                    for q, k, v in sets[:2]]
+        ms = time_ms(kernel, sets, 20)
+        dev_ms = device_ms(kernel, sets, 20)
+        plain_ms = time_ms(plain, sets[:1], 1)
+        sdpa_ms = time_ms(sdpa, lib_sets, 20)
+        bound = bound_ms(cost, dtype)
+        assert dev_ms >= bound[0], (shape, dev_ms, bound)
+        # the longest batch is the row phase 5's launches are counted on
+        path = "granite-4.0-h-small" + ("" if s == 8192 else f"@S{s}")
+        records["flash_attention", path] = record(
+            "flash_attention", path, shape, err, ms, plain_ms, bound,
+            sdpa_ms, device_ms=dev_ms,
+            library_device_ms=device_ms(sdpa, lib_sets, 20))
+        del sets, lib_sets
+
+    b, slots, lens = 4, 1032, [1032, 516, 1, 1001]
+
+    def decode_inputs(lengths):
+        return (_randn(gen, b, h, dh, dtype=dtype),
+                _randn(gen, b, slots, hkv, dh, dtype=dtype),
+                _randn(gen, b, slots, hkv, dh, dtype=dtype),
+                torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+    def decode(q, kc, vc, lengths):
+        return dec.decode_attention_cuda(q, kc, vc, lengths, scale=scale)
+
+    def decode_plain(q, kc, vc, lengths):
+        return dec.decode_attention_torch(q, kc, vc, lengths, scale=scale)
+
+    shape = f"bf16 B{b} H{h} Hkv{hkv} S{slots} Dh{dh} scale 1/128"
+    q, kc, vc, lengths = decode_inputs(lens)
+    err = check_close(f"decode {shape} lengths={lens} (granite)",
+                      decode(q, kc, vc, lengths),
+                      decode_plain(q, kc, vc, lengths), dtype)
+    errs["decode_attention"] = max(errs["decode_attention"], err)
+    cost = dec.cost(b, h, hkv, dh, b * slots)
+    sets = copies(lambda: decode_inputs([slots] * b), cost[1])
+    bound = bound_ms(cost, dtype)
+    dev_ms = device_ms(decode, sets, 200)
+    assert dev_ms >= bound[0], (shape, dev_ms, bound)
+    records["decode_attention", "granite-4.0-h-small"] = record(
+        "decode_attention", "granite-4.0-h-small", shape + ", lengths full",
+        err, time_ms(decode, sets, 200), time_ms(decode_plain, sets, 50),
+        bound, None, device_ms=dev_ms)
+    del sets
+    b, s, h, p, n = 2, 8192, 128, 64, 128
+    cost = ssd.cost(b, s, h, p, n)
+    sets = copies(lambda: ssd_inputs(gen, b, s, h, p, n, dtype, False),
+                  cost[1])
+    y, hf = ssd.ssd_scan_cuda(*sets[0])
+    y_ref, hf_ref = ssd.ssd_scan_torch(*sets[0])
+    name = f"ssd_scan bf16 B{b} S{s} H{h} P{p} N{n} (granite)"
+    errs["ssd_scan"] = max(errs["ssd_scan"],
+                           check_scaled(name + " y", y, y_ref, SSD_TOL),
+                           check_scaled(name + " h_final", hf, hf_ref,
+                                        SSD_TOL))
+    del y, hf, y_ref, hf_ref
+    ms = time_ms(ssd.ssd_scan_cuda, sets, 10)
+    dev_ms = device_ms(ssd.ssd_scan_cuda, sets, 10)
+    plain_ms = time_ms(ssd.ssd_scan_torch, sets[:1], 1)
+    bound = bound_ms(cost, dtype)
+    assert dev_ms >= bound[0], (name, dev_ms, bound)
+    records["ssd_scan", "granite-4.0-h-small"] = record(
+        "ssd_scan", "granite-4.0-h-small",
+        f"bf16 x/B/C, fp32 dt B{b} S{s} H{h} P{p} N{n}, no h0",
+        errs["ssd_scan"], ms, plain_ms, bound, None, device_ms=dev_ms)
+    del sets
+
+    e, k, d, f, tokens = 72, 10, 4096, 768, 16384
+    rows = tokens * k
+    ops = 3 * 2 * rows * d * f
+    nbytes = 2 * (3 * e * d * f + 3 * rows * d + 3 * rows * f)
+
+    def inputs():
+        ids, _ = torch.sort(torch.randint(0, e, (rows,), device="cuda",
+                                          generator=gen))
+        ends = torch.searchsorted(ids, torch.arange(e, device="cuda"),
+                                  right=True).to(torch.int32)
+        x = _randn(gen, rows, d, dtype=dtype)
+        w = [(_randn(gen, e, a, c, dtype=torch.float32) * a ** -0.5).to(dtype)
+             for a, c in ((d, f), (d, f), (f, d))]
+        return x, ends, *w
+
+    def grouped(x, ends, wg, wu, wd):
+        g = torch.nn.functional.silu(moe.grouped_mm(x, wg, ends).float())
+        return moe.grouped_mm(g.to(dtype) * moe.grouped_mm(x, wu, ends), wd,
+                              ends)
+
+    def per_expert(x, ends, wg, wu, wd):
+        out, start = torch.empty_like(x), 0
+        for i, end in enumerate(ends.tolist()):
+            xe = x[start:end]
+            g = torch.nn.functional.silu((xe @ wg[i]).float())
+            out[start:end] = (g.to(dtype) * (xe @ wu[i])) @ wd[i]
+            start = end
+        return out
+
+    sets = [inputs() for _ in range(2)]
+    got, want = grouped(*sets[0]), per_expert(*sets[0])
+    err = float((got.float() - want.float()).abs().max())
+    log(f"  grouped experts bf16 {tokens} x {k} over {e} experts, d {d} f "
+        f"{f}: max |grouped - a product an expert| {err:.3g}")
+    assert err == 0.0, "grouped products differ from the per-expert ones"
+    del got, want
+    ms = time_ms(grouped, sets, 10)
+    dev_ms = device_ms(grouped, sets, 10)
+    plain_ms = time_ms(per_expert, sets[:1], 2)
+    bound = bound_ms((ops, nbytes), dtype)
+    assert dev_ms >= bound[0], ("grouped experts", dev_ms, bound)
+    records["grouped_experts", "granite-4.0-h-small"] = dict(
+        name="grouped_experts", path="granite-4.0-h-small",
+        route="torch._grouped_mm", source="src/repro_torch/models/moe.py",
+        replaces="none (the JAX package's static-capacity einsum)",
+        shape=f"bf16 {tokens} tokens x {k} over {e} experts, d {d} f {f}, "
+              "gate, up and down", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+        library_ms=None, device_ms=dev_ms)
+    del sets
 
 
 def split_sweep(decode_inputs):
@@ -931,15 +1115,38 @@ def split_sweep(decode_inputs):
             del sets
 
 
+# the calls of ``models/moe.py::grouped_mm`` (one ``torch._grouped_mm``
+# launch each on the card), counted once ``count_grouped`` wraps it
+GROUPED = types.SimpleNamespace(launches=0)
+
+
+def count_grouped():
+    """Count every ``moe.grouped_mm`` call in ``GROUPED.launches`` (the
+    dropless dispatch calls it by the module's name)."""
+    from repro_torch.models import moe
+    inner = moe.grouped_mm
+    if getattr(inner, "counted", False):
+        return
+
+    def grouped_mm(*args):
+        GROUPED.launches += 1
+        return inner(*args)
+
+    grouped_mm.counted = True
+    moe.grouped_mm = grouped_mm
+
+
 def counters() -> dict:
-    """name -> the module whose ``launches`` counts that kernel."""
+    """name -> the module (or namespace) whose ``launches`` counts that
+    kernel."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rope as rp
     from repro_torch.kernels import ssd_scan as ssd
+    count_grouped()
     return {"flash_attention": fl, "decode_attention": dec, "ssd_scan": ssd,
-            "rglru_scan": rg, "rope": rp}
+            "rglru_scan": rg, "rope": rp, "grouped_experts": GROUPED}
 
 
 def n_attn(cfg) -> int:
@@ -950,14 +1157,21 @@ def n_attn(cfg) -> int:
 
 def expected_launches(cfg, prefill_batches: int, decode_steps: int) -> dict:
     """One launch per layer of the kernel's kind per prefill batch (flash,
-    the scans) or per decode step (decode attention); RoPE once per
-    attention layer in both."""
+    the scans: ``ssd_scan`` in both Mamba-2 kinds) or per decode step
+    (decode attention); RoPE once per attention layer in both where the
+    model has it; a dropless MoE layer's three grouped products in both."""
+    from repro_torch.models.config import MOE_KINDS
     kinds = cfg.layer_types()
+    steps = prefill_batches + decode_steps
+    rope = cfg.position_embedding == "rope"
+    dropless = sum(k in MOE_KINDS for k in kinds) if cfg.moe_dropless else 0
     return {"flash_attention": n_attn(cfg) * prefill_batches,
             "decode_attention": n_attn(cfg) * decode_steps,
-            "ssd_scan": kinds.count("ssm") * prefill_batches,
+            "ssd_scan": (kinds.count("ssm") + kinds.count("mamba2"))
+            * prefill_batches,
             "rglru_scan": kinds.count("rglru") * prefill_batches,
-            "rope": n_attn(cfg) * (prefill_batches + decode_steps)}
+            "rope": n_attn(cfg) * steps * rope,
+            "grouped_experts": 3 * dropless * steps}
 
 
 def moe_inputs(model) -> list:
@@ -1135,9 +1349,12 @@ def serve_one(arch: str, records: dict, combos: list, rows: list):
         raise AssertionError(f"{arch}: kernel launch counts do not match "
                              "the path")
     for name, n in counts.items():
-        if (name, arch) in records:
-            records[name, arch]["launches"] = n
-        elif n:
+        # an arch's rows of one kernel: its path, and ``path@shape``
+        rows = [r for (kernel, path), r in records.items()
+                if kernel == name and path.split("@")[0] == arch]
+        for r in rows:
+            r["launches"] = n
+        if n and not rows:
             raise AssertionError(f"{arch}: {name} launched but not timed")
     s = rep.summary()
     peak = f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB"
@@ -1611,7 +1828,8 @@ def phase_partitions(records: dict, procs: dict):
                          errs)
     scans_in_corun(part_mod, errs)
     for r in records.values():
-        r["partition_max_abs_err"] = errs[r["name"]]
+        if r["name"] in errs:   # the grouped products: not run there
+            r["partition_max_abs_err"] = errs[r["name"]]
 
     log(f"  L(b, p) grid: decode step at {pp.CTX} cached positions, bf16, "
         "full width; CUDA-graph replays on each partition (median of "
@@ -1622,7 +1840,7 @@ def phase_partitions(records: dict, procs: dict):
     t0 = time.perf_counter()
     grid = pp.profile(log=lambda line: log("  " + line))
     counts = {k: m.launches for k, m in mods.items()}
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(mods, 0)
     want["decode_attention"] = want["rope"] = grid_launches(grid)
     log(f"  grid: {len(grid)} cells in {time.perf_counter() - t0:.1f} s; "
         f"launches {counts}, expected {want}")
@@ -1796,7 +2014,7 @@ def phase_interference(records: dict, grid: list):
         del model_a, graph_a
         torch.cuda.empty_cache()
     counts = {k: m.launches for k, m in mods.items()}
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(mods, 0)
     want["decode_attention"] = want["rope"] = 2 * sum(
         n_attn(get_config(arch)) for arch in captured)
     log(f"  co-run launches {counts}, expected {want}")
@@ -2846,6 +3064,22 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if sys.argv[1:2] == ["--first-step"]:
         print(json.dumps(first_step(sys.argv[2])))
+        return 0
+    if sys.argv[1:2] == ["--granite"]:
+        # granite-4.0-h-small's rows of phase 3 alone: flash and decode
+        # attention at its heads and scale, the SSD scan at its shape and
+        # the grouped expert products at its cell's cap
+        device = phase_device()
+        records, errs = {}, dict.fromkeys(KERNELS, 0.0)
+        granite_rows(torch.Generator(device="cuda").manual_seed(0), records,
+                     errs)
+        for r in records.values():
+            log(f"  {r['name']} ({r['path']}) [{r['shape']}]: "
+                f"{r['ms']:.4f} ms, queued {r['device_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+        print(json.dumps({"kernels": list(records.values())}))
+        print(json.dumps({"ok": True, "device": device}))
         return 0
     t0 = time.perf_counter()
     device = phase_device()

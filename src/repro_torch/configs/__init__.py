@@ -4,7 +4,9 @@
 ``get_smoke_config(arch_id)`` returns a reduced variant of the same family
 (<=2 layers, d_model<=512, <=4 experts) for CPU smoke tests.  Both behave
 as the JAX package's ``configs`` do.  Every architecture of the JAX
-package is ported.
+package is ported.  ``PORT_IDS`` are the port's own configurations, which
+the JAX package does not have (granite-4.0-h-small); ``ARCH_IDS`` stays
+the JAX package's list, which the parity tests walk.
 """
 from __future__ import annotations
 
@@ -24,18 +26,22 @@ ARCH_IDS = (
     "hubert-xlarge",
 )
 
+# the port's own configurations (no JAX counterpart)
+PORT_IDS = ("granite-4.0-h-small",)
+
 # arch id -> the slice of the port that brings its config and model code
 NOT_YET_PORTED: dict[str, str] = {}
 
 
 def _module(arch_id: str):
     return importlib.import_module(
-        "repro_torch.configs." + arch_id.replace("-", "_"))
+        "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
 
 
 def get_config(arch_id: str):
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; choose from {ARCH_IDS}")
+    if arch_id not in ARCH_IDS + PORT_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; choose from "
+                       f"{ARCH_IDS + PORT_IDS}")
     if arch_id in NOT_YET_PORTED:
         raise NotImplementedError(
             f"{arch_id} is not yet ported; it comes with the "
@@ -44,12 +50,16 @@ def get_config(arch_id: str):
 
 
 def get_smoke_config(arch_id: str):
-    """Reduced same-family variant: <=2 layers, d_model<=512, <=4 experts."""
+    """Reduced same-family variant: <=2 layers, d_model<=512, <=4 experts
+    (explicit layer kinds: each kind once, in the order they come)."""
     cfg = get_config(arch_id)
     pattern = cfg.pattern
     n_layers = min(cfg.n_layers, 2)
+    kinds = tuple(dict.fromkeys(cfg.layer_kinds))
     if cfg.arch_type == "hybrid":
         n_layers = 3  # keep one full (rec, rec, attn) pattern unit
+    if kinds:
+        n_layers = len(kinds)
     updates = dict(
         name=cfg.name + "-smoke",
         n_layers=n_layers,
@@ -71,8 +81,11 @@ def get_smoke_config(arch_id: str):
         sliding_window=cfg.sliding_window and min(cfg.sliding_window, 64),
         pattern=pattern,
         n_frontend_tokens=min(cfg.n_frontend_tokens, 16),
+        layer_kinds=kinds,
+        shared_d_ff=min(cfg.shared_d_ff, 512),
     )
     return dataclasses.replace(cfg, **updates)
 
 
-__all__ = ["ARCH_IDS", "NOT_YET_PORTED", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "NOT_YET_PORTED", "PORT_IDS", "get_config",
+           "get_smoke_config"]

@@ -67,7 +67,8 @@ class _Params(ctypes.Structure):
 
 
 def decode_attention_torch(q, k_cache, v_cache, lengths, *,
-                           window: int | None = None):
+                           window: int | None = None,
+                           scale: float | None = None):
     """Plain version.  q: (B, H, Dh); caches: (B, S, Hkv, Dh); lengths: (B,).
 
     The math of the JAX oracle ``decode_attention_ref``: fp32 inside,
@@ -77,7 +78,7 @@ def decode_attention_torch(q, k_cache, v_cache, lengths, *,
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.float().reshape(b, hkv, h // hkv, dh)
     logits = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * (
-        1.0 / math.sqrt(dh))
+        1.0 / math.sqrt(dh) if scale is None else scale)
     pos = torch.arange(s, device=q.device)[None, :]
     lens = lengths.to(q.device)[:, None]
     valid = pos < lens
@@ -100,7 +101,8 @@ def cost(b: int, h: int, hkv: int, dh: int, valid_slots: int, *,
 
 
 def decode_attention_meta(q, k_cache, v_cache, lengths, *,
-                          window: int | None = None):
+                          window: int | None = None,
+                          scale: float | None = None):
     """The meta route (``kernels/pricing.py``): the kernel's output,
     computed by nothing, and its cost charged.  A meta ``lengths`` holds no
     values, so every row is priced with every slot valid (``window`` of
@@ -214,7 +216,8 @@ def max_cluster(dtype, dh: int, g: int) -> int:
     return limit
 
 
-def _plan(q, k_cache, v_cache, lengths, window, n_split) -> _Params:
+def _plan(q, k_cache, v_cache, lengths, window, n_split,
+          scale) -> _Params:
     """Check a launch signature once and build its parameters."""
     _check(q, k_cache, v_cache, lengths, window)
     b, h, dh = q.shape
@@ -234,12 +237,14 @@ def _plan(q, k_cache, v_cache, lengths, window, n_split) -> _Params:
     return _Params(_DTYPES[q.dtype], b, hkv, h // hkv, s, dh, n_split, chunk,
                    *q.stride()[:2], *k_cache.stride()[:3],
                    *v_cache.stride()[:3], h * dh, dh,
-                   -1 if window is None else window, 1.0 / math.sqrt(dh))
+                   -1 if window is None else window,
+                   1.0 / math.sqrt(dh) if scale is None else scale)
 
 
 def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
                           window: int | None = None,
-                          n_split: int | None = None):
+                          n_split: int | None = None,
+                          scale: float | None = None):
     """Launch the kernel.  Same contract as ``decode_attention_torch``;
     every ``lengths[b]`` must be >= 1 (a row with no valid slot gives 0,
     as the TPU kernel does).  ``n_split`` overrides ``split_plan`` (the
@@ -253,11 +258,12 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
            q.dtype, q.device, k_cache.shape,
            k_cache.stride(), k_cache.dtype, k_cache.device, v_cache.shape,
            v_cache.stride(), v_cache.dtype, v_cache.device, lengths.shape,
-           lengths.stride(), lengths.dtype, lengths.device, window, n_split)
+           lengths.stride(), lengths.dtype, lengths.device, window, n_split,
+           scale)
     params = _plans.get(key)
     if params is None:
         params = _plans[key] = _plan(q, k_cache, v_cache, lengths, window,
-                                     n_split)
+                                     n_split, scale)
     kp, vp = k_cache.data_ptr(), v_cache.data_ptr()
     if (kp | vp) % 16:
         raise ValueError("decode_attention_cuda: cache rows must be 16-byte "
@@ -266,7 +272,8 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
             return decode_attention_cuda(q, k_cache, v_cache, lengths,
-                                         window=window, n_split=n_split)
+                                         window=window, n_split=n_split,
+                                         scale=scale)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = lib.decode_attention_launch(
         q.data_ptr(), kp, vp, lengths.data_ptr(), o.data_ptr(),

@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``,
 function ``flash_attention`` (body ``_flash_kernel``): online softmax over
 KV blocks with fp32 running max, denominator and accumulator; causal and/or
 sliding-window mask with fully masked KV blocks skipped; GQA (query head h
-reads KV head h // group); scale 1/sqrt(Dh); masked logits -1e30;
+reads KV head h // group); scale 1/sqrt(Dh) (or a stated ``scale``, the
+kernel's argument, as granite's attention multiplier 1/Dh); masked logits
+-1e30;
 denominator floored at 1e-30.
 
 What bounds it on the H100: at the serving shapes (B=4, H=32, S <= 1000,
@@ -80,8 +82,13 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 +
                   ctypes.c_void_p])
 
 
+def _scale(dh: int, scale: float | None) -> float:
+    return 1.0 / math.sqrt(dh) if scale is None else scale
+
+
 def flash_attention_torch(q, k, v, *, causal: bool = True,
-                          window: int | None = None):
+                          window: int | None = None,
+                          scale: float | None = None):
     """Plain version.  q: (B, H, S, Dh); k/v: (B, Hkv, S, Dh).
 
     The math of the JAX oracle ``flash_attention_ref``: fp32 inside (fp64
@@ -93,7 +100,7 @@ def flash_attention_torch(q, k, v, *, causal: bool = True,
     inner = torch.promote_types(q.dtype, torch.float32)
     qg = q.to(inner).reshape(b, hkv, h // hkv, s, dh)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(inner)) * (
-        1.0 / math.sqrt(dh))
+        _scale(dh, scale))
     pos = torch.arange(s, device=q.device)
     qpos, kpos = pos[:, None], pos[None, :]
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
@@ -141,7 +148,8 @@ def _cost_of(q, k, causal, window, of=cost):
 
 
 def flash_attention_meta(q, k, v, *, causal: bool = True,
-                         window: int | None = None):
+                         window: int | None = None,
+                         scale: float | None = None):
     """The meta route (``kernels/pricing.py``): the kernel's output,
     computed by nothing, and its cost charged."""
     pricing.charge("flash_attention", _cost_of(q, k, causal, window))
@@ -195,7 +203,8 @@ def _strides(t) -> list[int]:
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         window: int | None = None):
+                         window: int | None = None,
+                         scale: float | None = None):
     """Launch the kernel.  Same contract as ``flash_attention_torch``."""
     global launches, _lib
     _check(q, k, v, window)
@@ -204,13 +213,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     b, h, s, dh = q.shape
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
-            return flash_attention_cuda(q, k, v, causal=causal, window=window)
+            return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        scale=scale)
     o = torch.empty_like(q)
     err = _lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPES[q.dtype], b, h, k.shape[1], s, dh,
         *_strides(q), *_strides(k), *_strides(v), *_strides(o), int(causal),
-        -1 if window is None else window, 1.0 / math.sqrt(dh),
+        -1 if window is None else window, _scale(dh, scale),
         _build.current_stream(q.device.index))
     _build.check(_lib, err, "flash_attention")
     launches += 1
@@ -339,7 +349,8 @@ def _aligned16(t) -> bool:
 
 
 def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
-                             window: int | None = None):
+                             window: int | None = None,
+                             scale: float | None = None):
     """Launch the backward kernels: (dq, dk, dv) of ``flash_attention_cuda(q,
     k, v, ...)`` for the incoming gradient ``do`` (B, H, S, Dh), each in
     its input's dtype and layout.  Same arguments as the forward."""
@@ -357,7 +368,7 @@ def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
             return flash_attention_bwd_cuda(q, k, v, do, causal=causal,
-                                            window=window)
+                                            window=window, scale=scale)
     lib = _build.library("flash_attention_bwd", _BWD_ARGTYPES)
     b, h, s, dh = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -376,7 +387,7 @@ def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
         base, base + 4 * n_stats, base + 8 * n_stats if n_part else None,
         _DTYPES[q.dtype], b, h,
         k.shape[1], s, dh, strides, int(causal),
-        -1 if window is None else window, 1.0 / math.sqrt(dh),
+        -1 if window is None else window, _scale(dh, scale),
         _build.current_stream(q.device.index))
     _build.check(lib, err, "flash_attention_bwd")
     bwd_launches += 1
@@ -384,7 +395,8 @@ def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
 
 
 def flash_attention_bwd_meta(q, k, v, do, *, causal: bool = True,
-                             window: int | None = None):
+                             window: int | None = None,
+                             scale: float | None = None):
     """The backward's meta route: the gradients and the scratch the CUDA
     wrapper allocates, computed by nothing, and its cost charged."""
     pricing.charge("flash_attention_backward",
@@ -413,14 +425,16 @@ class FlashAttention(torch.autograd.Function):
     v; the backward recomputes the rest."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, scale=None):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return FORWARD[q.device.type](q, k, v, causal=causal, window=window)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return FORWARD[q.device.type](q, k, v, causal=causal, window=window,
+                                      scale=scale)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = BACKWARD[q.device.type](q, k, v, do, causal=ctx.causal,
-                                             window=ctx.window)
-        return dq, dk, dv, None, None
+                                             window=ctx.window,
+                                             scale=ctx.scale)
+        return dq, dk, dv, None, None, None

@@ -47,21 +47,23 @@ def _wants_grad(*tensors) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int | None = None):
-    """q: (B, H, S, Dh); k/v: (B, Hkv, S, Dh).  Returns (B, H, S, Dh)."""
+                    window: int | None = None, scale: float | None = None):
+    """q: (B, H, S, Dh); k/v: (B, Hkv, S, Dh).  Returns (B, H, S, Dh).
+    ``scale`` is the softmax scale, 1/sqrt(Dh) unless given."""
     route = _route(q, "flash_attention")
     if route != "cpu" and _wants_grad(q, k, v):
-        return _flash.FlashAttention.apply(q, k, v, causal, window)
-    return _flash.FORWARD[route](q, k, v, causal=causal, window=window)
+        return _flash.FlashAttention.apply(q, k, v, causal, window, scale)
+    return _flash.FORWARD[route](q, k, v, causal=causal, window=window,
+                                 scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
-                     window: int | None = None):
+                     window: int | None = None, scale: float | None = None):
     """q: (B, H, Dh); caches: (B, S, Hkv, Dh); lengths: (B,) int32.
 
     Returns (B, H, Dh)."""
     return _decode.FORWARD[_route(q, "decode_attention")](
-        q, k_cache, v_cache, lengths, window=window)
+        q, k_cache, v_cache, lengths, window=window, scale=scale)
 
 
 def ssd_scan(xh, dt, a, bmat, cmat, h0=None):

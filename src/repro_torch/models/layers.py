@@ -21,6 +21,7 @@ flash kernel and its plain version take its place.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -54,8 +55,9 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
 class RMSNorm(nn.Module):
     """Norm parameters are fp32 whatever the model dtype, as in JAX."""
 
-    def __init__(self, d: int, *, device):
+    def __init__(self, d: int, *, device, eps: float = 1e-6):
         super().__init__()
+        self.eps = eps
         self.scale = _param((d,), device, torch.float32)
 
     @torch.no_grad()
@@ -63,7 +65,7 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
     def forward(self, x):
-        return rmsnorm(x, self.scale)
+        return rmsnorm(x, self.scale, self.eps)
 
 
 class LayerNorm(nn.Module):
@@ -81,9 +83,12 @@ class LayerNorm(nn.Module):
         return layernorm(x, self.scale, self.bias)
 
 
-def make_norm(kind: str):
-    """The norm module class for ``ModelConfig.norm``."""
-    return LayerNorm if kind == "layernorm" else RMSNorm
+def make_norm(kind: str, rms_eps: float = 1e-6):
+    """The norm module class for ``ModelConfig.norm`` (an RMSNorm with
+    ``rms_eps``)."""
+    if kind == "layernorm":
+        return LayerNorm
+    return functools.partial(RMSNorm, eps=rms_eps)
 
 
 # ------------------------------------------------------------ attention ----
@@ -132,26 +137,29 @@ def _repeat_kv(k, n_heads: int):
         b, s, n_heads, dh)
 
 
-def attention_full(q, k, v, *, causal: bool, window: int | None = None):
-    """Prefill attention.  q: (B, S, H, Dh), k/v: (B, S, Hkv, Dh).
+def attention_full(q, k, v, *, causal: bool, window: int | None = None,
+                   scale: float | None = None):
+    """Prefill attention.  q: (B, S, H, Dh), k/v: (B, S, Hkv, Dh); the
+    softmax ``scale`` 1/sqrt(Dh) unless given.
 
     Runs the flash kernel on (B, H, S, Dh) views of the same storage: the
     kernel reads through strides, so no transpose is copied.
     """
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal, window=window)
+                              v.transpose(1, 2), causal=causal, window=window,
+                              scale=scale)
     return out.transpose(1, 2)
 
 
 def attention_decode(q, k_cache, v_cache, cache_len, *,
-                     window: int | None = None):
+                     window: int | None = None, scale: float | None = None):
     """Single-token decode attention, grouped-GQA form.
 
     q: (B, 1, H, Dh); k_cache/v_cache: (B, S_max, Hkv, Dh); cache_len: (B,)
     int32 number of valid slots (the new token's K/V already written).
     """
     return ops.decode_attention(q[:, 0], k_cache, v_cache, cache_len,
-                                window=window)[:, None]
+                                window=window, scale=scale)[:, None]
 
 
 # --------------------------------------------------------------- conv ----
@@ -213,13 +221,19 @@ class MLP(nn.Module):
 
 
 class Embed(nn.Module):
-    def __init__(self, vocab: int, d_model: int, *, device, dtype):
+    """The token embedding ``tok`` (V, d) and the head (d, V); ``tied``
+    keeps no head (the model multiplies by ``tok`` transposed, a view)."""
+
+    def __init__(self, vocab: int, d_model: int, *, device, dtype,
+                 tied: bool = False):
         super().__init__()
         self.tok = _param((vocab, d_model), device, dtype)
-        self.head = _param((d_model, vocab), device, dtype)
+        if not tied:
+            self.head = _param((d_model, vocab), device, dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator):
         self.tok.normal_(0.0, 0.02, generator=generator)
-        self.head.normal_(0.0, 1.0 / math.sqrt(self.tok.shape[1]),
-                          generator=generator)
+        if "head" in self._parameters:
+            self.head.normal_(0.0, 1.0 / math.sqrt(self.tok.shape[1]),
+                              generator=generator)

@@ -22,6 +22,12 @@ token embedding and takes ``frame_embeds`` (B, T, d_model), attends
 without a causal mask (``cfg.causal``) and ends in its own classification
 ``head`` (d_model, padded_vocab).  It has no decode step.
 
+granite-4.0-h-small (the port's own configuration) multiplies the
+embedding by ``embedding_multiplier``, ties its head to the embedding
+(``tie_embeddings``: the head is ``embed.tok`` transposed, a view, so the
+411 M of its vocabulary are held once) and divides the logits by
+``logits_scaling``; every multiplier 1 is no operation.
+
 ``cache["len"]`` is one Python int shared by the whole batch, so the decode
 loop never waits on the device to find its ring slot.  The per-layer
 caches (KV tensors, recurrent states) are updated in place.
@@ -76,11 +82,14 @@ class Model(nn.Module):
                                dtype)
         else:
             self.embed = Embed(cfg.padded_vocab, cfg.d_model,
-                               device=self.device, dtype=dtype)
+                               device=self.device, dtype=dtype,
+                               tied=cfg.tie_embeddings)
         self.layers = nn.ModuleList(
-            tfm.init_layer(kind, cfg, device=self.device, dtype=dtype)
-            for kind in cfg.layer_types())
-        self.final_norm = make_norm(cfg.norm)(cfg.d_model, device=self.device)
+            tfm.init_layer(kind, cfg, device=self.device, dtype=dtype,
+                           index=i)
+            for i, kind in enumerate(cfg.layer_types()))
+        self.final_norm = make_norm(cfg.norm, cfg.rms_eps)(
+            cfg.d_model, device=self.device)
 
     # ------------------------------------------------------------- init ----
 
@@ -101,8 +110,12 @@ class Model(nn.Module):
     # ---------------------------------------------------------- forward ----
 
     def _head(self, x):
-        return x @ (self.head if self.cfg.arch_type == "audio"
-                    else self.embed.head)
+        if self.cfg.arch_type == "audio":
+            return x @ self.head
+        logits = x @ (self.embed.tok.t() if self.cfg.tie_embeddings
+                      else self.embed.head)
+        s = self.cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
 
     def _logits(self, x):
         """The final norm and the head."""
@@ -113,7 +126,9 @@ class Model(nn.Module):
         return logits
 
     def _embed(self, tokens):
-        return F.embedding(tokens.long(), self.embed.tok)
+        x = F.embedding(tokens.long(), self.embed.tok)
+        m = self.cfg.embedding_multiplier
+        return x if m == 1.0 else x * m
 
     def _embed_inputs(self, tokens, patch_embeds, frame_embeds):
         """The residual stream's input (B, S, D) and its positions (B, S)."""

@@ -4,9 +4,15 @@ layer stack.
 PyTorch counterpart of the JAX package's ``models/transformer.py`` for the
 kinds ``attn_mlp`` (dense), ``moe`` (attention then the MoE layer in place
 of the MLP), ``ssm`` (mamba2) and ``rglru`` / ``attn`` (the hybrid's
-recurrent and local-attention blocks).  The JAX package scans stacked
-layer parameters with ``lax.scan`` (or loops over the hybrid's list);
-here the stack is a Python loop over an ``nn.ModuleList`` of blocks.
+recurrent and local-attention blocks).  ``mamba2`` (granite-4.0-h-small's,
+not in the JAX package) is the upstream Mamba-2 mixer then the MoE layer,
+each half pre-normed; granite's attention layers are ``moe`` blocks with
+no RoPE (``position_embedding`` "none") at its stated softmax scale.  Each
+half adds its output times ``residual_multiplier`` (1: a plain add).
+
+The JAX package scans stacked layer parameters with ``lax.scan`` (or loops
+over the hybrid's list); here the stack is a Python loop over an
+``nn.ModuleList`` of blocks.
 
 Caches are per-layer dicts, updated in place (the JAX code returns new
 arrays; in place saves a copy of the cache per layer): ``{"k", "v"}`` of
@@ -38,12 +44,12 @@ from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.config import ATTN_KINDS, ModelConfig
+from repro_torch.models.config import ATTN_KINDS, MOE_KINDS, ModelConfig
 from repro_torch.models.layers import (MLP, Attention, attention_decode,
                                        attention_full, make_norm)
 from repro_torch.obs import host
 
-KINDS = ATTN_KINDS + ("ssm", "rglru")
+KINDS = ATTN_KINDS + ("ssm", "rglru", "mamba2")
 
 
 def _require_ported(kind: str):
@@ -59,12 +65,14 @@ class Block(nn.Module):
     """Pre-norm residual block, with the JAX ``init_layer`` parameters of
     its kind: attention then MLP (``attn_mlp``, ``attn``); attention then
     the MoE layer (``moe``); the SSM mixer alone (``ssm``); the RG-LRU then
-    MLP (``rglru``)."""
+    MLP (``rglru``); and the port's own: the upstream Mamba-2 mixer then
+    the MoE layer (``mamba2``, its mixer under ``ssm``)."""
 
-    def __init__(self, kind: str, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, kind: str, cfg: ModelConfig, *, device, dtype,
+                 index: int | None = None):
         super().__init__()
         _require_ported(kind)
-        norm = make_norm(cfg.norm)
+        norm = make_norm(cfg.norm, cfg.rms_eps)
         d = cfg.d_model
         self.ln1 = norm(d, device=device)
         if kind in ATTN_KINDS:
@@ -72,13 +80,16 @@ class Block(nn.Module):
                                   cfg.head_dim, device=device, dtype=dtype)
         elif kind == "ssm":
             self.ssm = ssm_mod.ssm_init(cfg, device=device, dtype=dtype)
+        elif kind == "mamba2":
+            self.ssm = ssm_mod.mamba2_init(cfg, device=device, dtype=dtype)
         else:
             self.rglru = rglru_mod.rglru_init(cfg, device=device,
                                               dtype=dtype)
         if kind != "ssm":
             self.ln2 = norm(d, device=device)
-        if kind == "moe":
-            self.moe = moe_mod.moe_init(cfg, device=device, dtype=dtype)
+        if kind in MOE_KINDS:
+            self.moe = moe_mod.moe_init(cfg, device=device, dtype=dtype,
+                                        layer=index)
         elif kind != "ssm":
             self.mlp = MLP(d, cfg.d_ff, cfg.activation, device=device,
                            dtype=dtype)
@@ -88,9 +99,10 @@ class Block(nn.Module):
             m.reset_parameters(generator)
 
 
-def init_layer(kind: str, cfg: ModelConfig, *, device, dtype) -> Block:
-    """Allocate one layer (parameters unfilled: see ``Model.init``)."""
-    return Block(kind, cfg, device=device, dtype=dtype)
+def init_layer(kind: str, cfg: ModelConfig, *, device, dtype,
+               index: int | None = None) -> Block:
+    """Allocate layer ``index`` (parameters unfilled: see ``Model.init``)."""
+    return Block(kind, cfg, device=device, dtype=dtype, index=index)
 
 
 def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
@@ -98,6 +110,9 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     _require_ported(kind)
     if kind == "ssm":
         return ssm_mod.init_ssm_state(cfg, batch, device=device, dtype=dtype)
+    if kind == "mamba2":
+        return ssm_mod.init_mamba2_state(cfg, batch, device=device,
+                                         dtype=dtype)
     if kind == "rglru":
         return rglru_mod.init_rglru_state(cfg, batch, device=device,
                                           dtype=dtype)
@@ -126,16 +141,25 @@ def _ring_write(cache: dict, k, v, start: int):
         cache[name][:, :n - head] = t[:, head:]
 
 
-def _attention_seq(attn: Attention, x, cfg: ModelConfig, positions, window,
-                   cache=None):
-    """Full-sequence attention (prefill).  Returns (out, cache)."""
-    q, k, v = attn.project(x)
+def _rope(q, k, cfg: ModelConfig, positions):
+    """q and k rotated (none rotated without a position embedding)."""
+    if cfg.position_embedding == "none":
+        return q, k
     rec = host.on and host.open("rope")
     q, k = ops.rope(q, k, positions, cfg.rope_theta)
     if rec:
         host.close()
+    return q, k
+
+
+def _attention_seq(attn: Attention, x, cfg: ModelConfig, positions, window,
+                   cache=None):
+    """Full-sequence attention (prefill).  Returns (out, cache)."""
+    q, k, v = attn.project(x)
+    q, k = _rope(q, k, cfg, positions)
     rec = host.on and host.open("flash")
-    out = attention_full(q, k, v, causal=cfg.causal, window=window)
+    out = attention_full(q, k, v, causal=cfg.causal, window=window,
+                         scale=cfg.attn_scale or None)
     if rec:
         host.close()
     if cache is not None:
@@ -152,16 +176,14 @@ def _attention_step(attn: Attention, x, cfg: ModelConfig, cache,
     positions: (B, 1) = cache_len; n_valid: (B,) int32 valid slots after
     this token's write."""
     q, k, v = attn.project(x)
-    rec = host.on and host.open("rope")
-    q, k = ops.rope(q, k, positions, cfg.rope_theta)
-    if rec:
-        host.close()
+    q, k = _rope(q, k, cfg, positions)
     rec = host.on and host.open("ring_write")
     _ring_write(cache, k, v, start=cache_len)
     if rec:
         host.close()
     rec = host.on and host.open("decode_attention")
-    out = attention_decode(q, cache["k"], cache["v"], n_valid, window=window)
+    out = attention_decode(q, cache["k"], cache["v"], n_valid, window=window,
+                           scale=cfg.attn_scale or None)
     if rec:
         host.close()
     return attn.out(out), cache
@@ -176,7 +198,14 @@ def _window(kind: str, cfg: ModelConfig, window_override):
     return cfg.local_window if kind == "attn" else cfg.sliding_window
 
 
-def _feed_forward(block: Block, x, kind: str, with_aux: bool = False):
+def _residual(x, out, cfg: ModelConfig):
+    """x plus a block half's output, times the residual multiplier."""
+    m = cfg.residual_multiplier
+    return x + out if m == 1.0 else x + out * m
+
+
+def _feed_forward(block: Block, x, kind: str, cfg: ModelConfig,
+                  with_aux: bool = False):
     """The block's second residual half: the MLP, or the MoE layer, or
     nothing (``ssm``).  Returns (x, aux): aux is the MoE aux loss (a
     training term) with ``with_aux`` on an MoE block, else None."""
@@ -186,17 +215,29 @@ def _feed_forward(block: Block, x, kind: str, with_aux: bool = False):
     h = block.ln2(x)
     if rec:
         host.close()
-    if kind == "moe":
+    if kind in MOE_KINDS:
         rec = host.on and host.open("moe")
         y, aux = block.moe(h, with_aux)
         if rec:
             host.close()
-        return x + y, aux
+        return _residual(x, y, cfg), aux
     rec = host.on and host.open("mlp")
     y = block.mlp(h)
     if rec:
         host.close()
-    return x + y, None
+    return _residual(x, y, cfg), None
+
+
+def _mixer(kind: str):
+    """(module attribute, sequence apply, decode step, span) of a
+    recurrent kind's mixer."""
+    if kind == "rglru":
+        return ("rglru", rglru_mod.rglru_apply, rglru_mod.rglru_decode_step,
+                "rglru")
+    if kind == "mamba2":
+        return ("ssm", ssm_mod.mamba2_apply, ssm_mod.mamba2_decode_step,
+                "ssm")
+    return "ssm", ssm_mod.ssm_apply, ssm_mod.ssm_decode_step, "ssm"
 
 
 def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
@@ -217,15 +258,15 @@ def block_apply_seq(block: Block, x, kind: str, cfg: ModelConfig, positions,
         if rec:
             host.close()
     else:
-        apply = (ssm_mod.ssm_apply if kind == "ssm"
-                 else rglru_mod.rglru_apply)
-        rec = host.on and host.open(kind)
-        out, state = apply(getattr(block, kind), h, cfg, cache)
+        attr, apply, _, span = _mixer(kind)
+        rec = host.on and host.open(span)
+        out, state = apply(getattr(block, attr), h, cfg, cache)
         if cache is not None:
             cache.update(state)
         if rec:
             host.close()
-    x, aux = _feed_forward(block, x + out, kind, with_aux)
+    x, aux = _feed_forward(block, _residual(x, out, cfg), kind, cfg,
+                           with_aux)
     return x, cache, aux
 
 
@@ -245,14 +286,13 @@ def block_apply_step(block: Block, x, kind: str, cfg: ModelConfig, cache,
         if rec:
             host.close()
     else:
-        step = (ssm_mod.ssm_decode_step if kind == "ssm"
-                else rglru_mod.rglru_decode_step)
-        rec = host.on and host.open(kind)
-        out, state = step(getattr(block, kind), h, cfg, cache)
+        attr, _, step, span = _mixer(kind)
+        rec = host.on and host.open(span)
+        out, state = step(getattr(block, attr), h, cfg, cache)
         cache.update(state)
         if rec:
             host.close()
-    return _feed_forward(block, x + out, kind)[0], cache
+    return _feed_forward(block, _residual(x, out, cfg), kind, cfg)[0], cache
 
 
 # ----------------------------------------------------------- layer stack --

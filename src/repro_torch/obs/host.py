@@ -30,6 +30,13 @@ two trees.  A root closes on its way out whatever an exception left open
 inside it.  A ``step`` span's ``args`` are (entry, batch, length, serial),
 the serial counting the steps of its thread in the session from 0; a
 ``block``'s are (layer index, kind); other spans have none.
+
+Counters follow the spans: ``count(name, key, value)``, called where a
+span records, adds a device tensor into the session's counter (name,
+key) on the device, with no wait on it; ``counters(name)`` gives the
+newest session's, to be read after the window.  The MoE layer's dropless
+dispatch counts ``expert_tokens``, keyed by its layer: the tokens each
+expert received.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import threading
 import time
 from typing import NamedTuple
 
+import torch
 from torch.autograd import profiler as _profiler
 
 
@@ -87,6 +95,7 @@ _OFF = _Off()
 _local = _Thread()
 _lock = threading.Lock()
 _sessions = [[]]   # the newest session last: (thread name, record) pairs
+_counts = {}       # the newest session's counters: (name, key) -> tensor
 on = False         # what the last root found: the profiler on
 
 
@@ -101,6 +110,7 @@ def _root(name: str, args: tuple) -> _Thread:
     with _lock:
         if not on:
             _sessions[:] = [[]]
+            _counts.clear()
             on = True
         session = _sessions[-1]
         t = _local
@@ -162,3 +172,21 @@ def spans() -> list[Span]:
         out += [Span(n, a, b, None if p is None else base + p, thread, args)
                 for n, a, b, p, args in list(record)]
     return out
+
+
+def count(name: str, key, value):
+    """Add ``value`` (a tensor) into this session's counter (name, key), in
+    int64 on its device: nothing waits on it.  Call it where a span
+    records."""
+    with _lock:
+        acc = _counts.get((name, key))
+        if acc is None:
+            _counts[name, key] = value.to(torch.int64, copy=True)
+        else:
+            acc.add_(value)
+
+
+def counters(name: str) -> dict:
+    """The newest session's counters of ``name``: key -> tensor."""
+    with _lock:
+        return {k: v for (n, k), v in _counts.items() if n == name}

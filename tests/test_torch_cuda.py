@@ -977,3 +977,76 @@ def test_rope_backward_matches_autograd_of_plain_version(cuda, dtype, where):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# ---------------------------------------------------- granite-4.0-h-small ---
+
+
+def test_grouped_expert_products_equal_a_product_an_expert(cuda):
+    """``moe.grouped_mm`` on the card (one ``torch._grouped_mm`` launch)
+    against a product an expert, bf16, bit for bit: uneven groups and an
+    expert with no row."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(0)
+    e, d, f = 9, 256, 128
+    ids = np.sort(rng.choice([0, 1, 1, 1, 2, 4, 5, 6, 7, 8], size=300))
+    ends = torch.tensor(np.searchsorted(ids, np.arange(e), side="right"),
+                        dtype=torch.int32, device=cuda)
+    x = on(cuda, rng, 300, d).bfloat16()
+    w = (on(cuda, rng, e, d, f) * d ** -0.5).bfloat16()
+    got = moe.grouped_mm(x, w, ends)
+    start = 0
+    for i, end in enumerate(ends.tolist()):
+        assert torch.equal(got[start:end], x[start:end] @ w[i])
+        start = end
+
+
+def test_grouped_expert_products_refuse_fp32_on_the_card(cuda):
+    """On the card only bf16 has a grouped product; fp32 raises rather than
+    take a product an expert, which reads the offsets on the host."""
+    from repro_torch.models import moe
+    x = torch.ones(4, 8, device=cuda)
+    ends = torch.tensor([4], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        moe.grouped_mm(x, torch.ones(1, 8, 8, device=cuda), ends)
+
+
+def test_dropless_moe_on_the_card_equals_the_cpu(cuda):
+    """granite's smoke MoE layer, dropless, bf16: the card's grouped products
+    against the CPU's product an expert, within bf16 rounding."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_smoke_config("granite-4.0-h-small"),
+                              n_experts=8, top_k=2)
+    layer = moe.MoE(cfg, device="cpu", dtype=torch.bfloat16)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 33, cfg.d_model).bfloat16()
+    want, _ = moe.moe_apply(layer, x, cfg, False)
+    got, _ = moe.moe_apply(layer.to(cuda), x.to(cuda), cfg, False)
+    scale = float(want.float().abs().max())
+    assert float((got.cpu().float() - want.float()).abs().max()) <= \
+        BF16 * scale
+
+
+@pytest.mark.parametrize("scale", [None, 1 / 128])
+def test_attention_kernels_take_a_stated_scale(cuda, scale):
+    """Flash and decode at granite's head shape (32 / 8 heads of 128) at
+    1/sqrt(Dh) and at a stated 1/Dh, against their plain versions."""
+    rng = np.random.default_rng(1)
+    q = on(cuda, rng, 2, 32, 77, 128).bfloat16()
+    k = on(cuda, rng, 2, 8, 77, 128).bfloat16()
+    v = on(cuda, rng, 2, 8, 77, 128).bfloat16()
+    got = tflash.flash_attention_cuda(q, k, v, causal=True, scale=scale)
+    want = tflash.flash_attention_torch(q, k, v, causal=True, scale=scale)
+    rms = want.float().square().mean(-1, keepdim=True).sqrt()
+    assert float(((got.float() - want.float()) / rms).abs().max()) < BF16
+    kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    lens = torch.tensor([77, 40], dtype=torch.int32, device=cuda)
+    got = tdecode.decode_attention_cuda(q[:, :, -1], kc, vc, lens,
+                                        scale=scale)
+    want = tdecode.decode_attention_torch(q[:, :, -1], kc, vc, lens,
+                                          scale=scale)
+    rms = want.float().square().mean(-1, keepdim=True).sqrt()
+    assert float(((got.float() - want.float()) / rms).abs().max()) < BF16

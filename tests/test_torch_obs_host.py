@@ -15,8 +15,13 @@ from repro_torch.obs import host  # noqa: E402
 
 B, S = 2, 9
 MIXER = {"attn_mlp": "attention", "attn": "attention", "moe": "attention",
-         "ssm": "ssm", "rglru": "rglru"}
-FEED = {"attn_mlp": "mlp", "attn": "mlp", "moe": "moe", "rglru": "mlp"}
+         "ssm": "ssm", "rglru": "rglru", "mamba2": "ssm"}
+FEED = {"attn_mlp": "mlp", "attn": "mlp", "moe": "moe", "rglru": "mlp",
+        "mamba2": "moe"}
+# the parts inside the MoE layer, and inside the upstream Mamba-2 mixer
+# over a sequence (its decode step has none)
+MOE_PARTS = ["route", "dispatch", "experts", "combine", "shared"]
+MAMBA2_PARTS = ["conv", "ssd_scan", "gated_norm"]
 
 
 def _model(arch):
@@ -67,15 +72,30 @@ def _block_children(kind):
     return names
 
 
-def _attention_children(decode, cached):
+def _attention_children(decode, cached, rope=True):
     if decode:
-        return ["rope", "ring_write", "decode_attention"]
-    return ["rope", "flash"] + (["ring_write"] if cached else [])
+        names = ["rope", "ring_write", "decode_attention"]
+    else:
+        names = ["rope", "flash"] + (["ring_write"] if cached else [])
+    return names if rope else names[1:]
+
+
+def _inner(name, kind, decode, cfg):
+    """The spans a block's part holds."""
+    if name == "attention":
+        return _attention_children(decode, cfg.has_decoder,
+                                   cfg.position_embedding == "rope")
+    if name == "moe":
+        return MOE_PARTS
+    if name == "ssm" and kind == "mamba2" and not decode:
+        return MAMBA2_PARTS
+    return []
 
 
 @pytest.mark.parametrize("arch", ["yi-9b", "hubert-xlarge",
                                   "deepseek-moe-16b", "mamba2-780m",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b",
+                                  "granite-4.0-h-small"])
 def test_a_profiled_step_records_its_tree(arch):
     model = _model(arch)
     _entry(model)  # the profiler off: a new session below
@@ -103,11 +123,8 @@ def test_a_profiled_step_records_its_tree(arch):
             assert [spans[k].name for k in inner] == \
                 _block_children(kind)
             for k in inner:
-                if spans[k].name == "attention":
-                    assert [spans[m].name for m in _children(spans, k)] == \
-                        _attention_children(decode, decoder)
-                else:
-                    assert _children(spans, k) == []
+                assert [spans[m].name for m in _children(spans, k)] == \
+                    _inner(spans[k].name, kind, decode, model.cfg)
     # every span inside its parent, siblings one after another
     for i, s in enumerate(spans):
         assert s.start <= s.end
